@@ -1,0 +1,233 @@
+"""Ph5 key routing (Fig. 1 steps 10–11) — the single balanced h-relation.
+
+Every processor's run is cut into p destination rows of static width and
+delivered by one exchange over the leading processor dimension:
+
+* ``a2a_dense`` — (p_src, p_dst, pair_cap) rows, one all_to_all (a
+  transpose). ``pair_cap`` is the per-(src, dst) capacity of the tier, so
+  an overflow is detected (any send count above it, or a receive total
+  above ``n_max``) and surfaced as the retriable ``overflow`` flag.
+* ``allgather`` — the ladder's terminal tier: every processor sees every
+  run and slices its bucket (rows of width n_p); receive buffer n.
+* ``ring`` — not ported yet (ROADMAP, queue 1).
+
+Under ``exchange="fused"`` the key and payload rows are bitcast to bytes
+and concatenated into one buffer, so a data superstep is one exchange
+whatever the payload count; the bitcast is exact, so the result equals
+``per_array``'s. Received rows are ordered by (source proc, local idx),
+which keeps the final merge stable.
+"""
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+from . import merge as merge_mod
+from . import primitives as prim
+from .types import SortConfig, sentinel_for
+
+
+# ------------------------------------------------------ fused byte packing
+def pack_bytes(arrs: Sequence[torch.Tensor], lead: int = 2) -> Tuple[torch.Tensor, tuple]:
+    """Bitcast arrays sharing ``lead`` leading dims into ONE uint8 buffer.
+
+    Each array contributes its trailing dims as a flat byte run along a new
+    last axis. Returns ``(buffer, metas)``; :func:`unpack_bytes` inverts it.
+    """
+    parts, metas = [], []
+    for a in arrs:
+        flat = a.contiguous().reshape(a.shape[:lead] + (-1,))
+        parts.append(flat.view(torch.uint8))
+        metas.append((a.dtype, tuple(a.shape[lead:])))
+    return torch.cat(parts, dim=-1), tuple(metas)
+
+
+def unpack_bytes(buf: torch.Tensor, metas: tuple, lead: int = 2) -> List[torch.Tensor]:
+    """Invert :func:`pack_bytes` after delivery (bit-exact)."""
+    out, off = [], 0
+    head = tuple(buf.shape[:lead])
+    for dtype, trail in metas:
+        nb = int(torch.Size(trail).numel()) * torch.empty((), dtype=dtype).element_size()
+        part = buf[..., off : off + nb].contiguous()
+        off += nb
+        out.append(part.view(dtype).reshape(head + tuple(trail)))
+    return out
+
+
+# ---------------------------------------------------------------- routing
+def send_counts(boundaries: torch.Tensor) -> torch.Tensor:
+    """(p_src, p_dst) keys every processor sends to every destination."""
+    return torch.diff(boundaries, dim=-1)
+
+
+def recv_counts(counts: torch.Tensor) -> torch.Tensor:
+    """(p_dst, p_src): r[me, j] = counts[j, me] — the count bookkeeping superstep."""
+    return prim.all_to_all(counts)
+
+
+#: payload fill of empty slots (keys take the dtype sentinel)
+_PAYLOAD_PAD = 0
+
+
+def _segment_rows(
+    arrs: Sequence[torch.Tensor],
+    boundaries: torch.Tensor,
+    counts: torch.Tensor,
+    width: int,
+    key_sentinel,
+) -> List[torch.Tensor]:
+    """Cut every run into p destination rows of static width.
+
+    rows[src, i, t] = arr[src, b[src, i] + t] for t < c[src, i], else pad.
+    """
+    p, n_p = arrs[0].shape[:2]
+    t = torch.arange(width, device=boundaries.device)
+    idx = torch.clamp(boundaries[:, :-1, None] + t, 0, n_p - 1).reshape(p, -1)
+    valid = t < counts[:, :, None]
+    rows = []
+    for i, a in enumerate(arrs):
+        g = prim.take_rows(a, idx).reshape((p, p, width) + a.shape[2:])
+        fill = key_sentinel if i == 0 else _PAYLOAD_PAD
+        mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
+        rows.append(torch.where(mask, g, torch.tensor(fill, dtype=a.dtype, device=a.device)))
+    return rows
+
+
+def _all_to_all_rows(rows: List[torch.Tensor], cfg: SortConfig) -> List[torch.Tensor]:
+    """Deliver (p_src, p_dst, w, ...) rows: ONE fused exchange, or one per array."""
+    if cfg.exchange == "fused" and len(rows) > 1:
+        buf, metas = pack_bytes(rows, lead=3)
+        return unpack_bytes(prim.all_to_all(buf), metas, lead=3)
+    return [prim.all_to_all(r) for r in rows]
+
+
+def recv_rows(
+    x_sorted: torch.Tensor,
+    boundaries: torch.Tensor,
+    cfg: SortConfig,
+    values: Sequence[torch.Tensor] = (),
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Deliver bucket ``me`` of every source to every processor ``me``.
+
+    Returns ``(rows, rcounts, overflow)``: rows[a] is (p_me, p_src, width,
+    ...), row j the sorted padded run received from source j; rcounts
+    (p_me, p_src) int32 its valid lengths; overflow (p,) bool, replicated.
+    Width = pair_cap (a2a_dense) or n_p (allgather).
+    """
+    p, n_p = x_sorted.shape
+    sent = sentinel_for(x_sorted.dtype)
+    counts = send_counts(boundaries)
+    arrs = [x_sorted, *values]
+
+    if cfg.routing == "a2a_dense":
+        rcounts = recv_counts(counts)
+        over = (counts > cfg.pair_cap).any(dim=1) | (rcounts.sum(dim=1) > cfg.n_max)
+        rows = _segment_rows(arrs, boundaries, counts, cfg.pair_cap, sent)
+        return _all_to_all_rows(rows, cfg), rcounts, over.any().expand(p)
+
+    if cfg.routing == "allgather":
+        # every processor sees all boundaries (the bookkeeping gather) and
+        # all runs (the data gather), then slices bucket ``me`` of each
+        starts = boundaries[:, :-1].transpose(0, 1)  # (p_me, p_src)
+        rcounts = recv_counts(counts)
+        t = torch.arange(n_p, device=x_sorted.device)
+        idx = torch.clamp(starts[:, :, None] + t, 0, n_p - 1)  # (p_me, p_src, n_p)
+        valid = t < rcounts[:, :, None]
+        src = torch.arange(p, device=x_sorted.device)[None, :, None]
+        rows = []
+        for i, a in enumerate(arrs):
+            g = prim.all_gather(a)[torch.arange(p, device=a.device)[:, None, None], src, idx.long()]
+            fill = sent if i == 0 else _PAYLOAD_PAD
+            mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
+            rows.append(torch.where(mask, g, torch.tensor(fill, dtype=a.dtype, device=a.device)))
+        over = rcounts.sum(dim=1) > cfg.n_max
+        return rows, rcounts, over.any().expand(p)
+
+    if cfg.routing == "ring":
+        raise NotImplementedError("routing='ring' is not ported yet (see ROADMAP.md, queue 1)")
+    raise ValueError(f"recv_rows: unsupported routing {cfg.routing!r}")
+
+
+def compact_rows(
+    rows: Sequence[torch.Tensor],
+    rcounts: torch.Tensor,
+    cap: int,
+    key_sentinel,
+) -> List[torch.Tensor]:
+    """Scatter (p, p_src, w, ...) rows into (p, cap, ...) buffers by source.
+
+    Row j's first r_j entries land at offsets[j]...; the rest, and anything
+    past ``cap``, are dropped. Pads end at the tail.
+    """
+    p, n_src, w = rows[0].shape[:3]
+    offsets = prim.exclusive_cumsum(rcounts, dim=1)
+    t = torch.arange(w, device=rcounts.device)
+    valid = t < rcounts[:, :, None]
+    idx = torch.clamp(torch.where(valid, offsets[:, :, None] + t, cap), max=cap)
+    idx = idx.reshape(p, n_src * w).long()
+    out = []
+    for i, r in enumerate(rows):
+        trail = r.shape[3:]
+        fill = key_sentinel if i == 0 else _PAYLOAD_PAD
+        buf = torch.full((p, cap + 1) + trail, fill, dtype=r.dtype, device=r.device)
+        index = idx.reshape((p, n_src * w) + (1,) * len(trail)).expand((p, n_src * w) + trail)
+        buf.scatter_(1, index, r.reshape((p, n_src * w) + trail))
+        out.append(buf[:, :cap])
+    return out
+
+
+def route(
+    x_sorted: torch.Tensor,
+    boundaries: torch.Tensor,
+    cfg: SortConfig,
+    values: Sequence[torch.Tensor] = (),
+) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Route bucket i of every processor to processor i, compacted by source.
+
+    Returns ``(buf, value_bufs, count, overflow)``: (p, n_max) receive
+    buffers ordered by (src, idx), (p,) int32 valid lengths, (p,) flags.
+    """
+    sent = sentinel_for(x_sorted.dtype)
+    cap = cfg.n_max
+    rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
+    out = compact_rows(rows, rcounts, cap, sent)
+    total = torch.clamp(rcounts.sum(dim=1, dtype=torch.int32), max=cap)
+    return out[0], out[1:], total, overflow
+
+
+def _fit(arr: torch.Tensor, cap: int, fill) -> torch.Tensor:
+    """Slice or pad-extend (p, L, ...) merged runs to the (p, cap, ...) shape."""
+    if arr.shape[1] >= cap:
+        return arr[:, :cap]
+    pad = torch.full(
+        (arr.shape[0], cap - arr.shape[1]) + arr.shape[2:], fill, dtype=arr.dtype, device=arr.device
+    )
+    return torch.cat([arr, pad], dim=1)
+
+
+def route_and_merge(
+    x_sorted: torch.Tensor,
+    boundaries: torch.Tensor,
+    cfg: SortConfig,
+    values: Sequence[torch.Tensor] = (),
+) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Ph5 + Ph6: route, then stable merge (``tree`` or ``sort``).
+
+    Every received row is a sorted run (bucket i of a sorted run), which is
+    what makes the tree tail valid; it takes the received rows (keys and
+    payloads) straight into :func:`merge.merge_tree`.
+    """
+    if cfg.merge == "tree":
+        rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
+        cap = cfg.n_max
+        merged, mvals, count = merge_mod.merge_tree(
+            rows[0], rcounts, values=rows[1:], backend=cfg.merge_backend, cap=cap
+        )
+        merged = _fit(merged, cap, sentinel_for(x_sorted.dtype))
+        mvals = [_fit(v, cap, _PAYLOAD_PAD) for v in mvals]
+        return merged, mvals, torch.clamp(count, max=cap), overflow
+
+    buf, vbufs, count, overflow = route(x_sorted, boundaries, cfg, values)
+    merged, mvals = merge_mod.merge_by_sort(buf, vbufs)
+    return merged, mvals, count, overflow

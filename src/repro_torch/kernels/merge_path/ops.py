@@ -1,0 +1,70 @@
+"""Wrappers for the merge-path merge kernel (K3, ``csrc/merge_path.cu``).
+
+* :func:`merge_partitioned` — merge of sorted (rows, W) pairs cut into
+  ``TILE``-wide output spans, used by the Ph6 rank-merge tail for key-only
+  pairs under ``merge_backend="pallas"``. A CUDA tensor launches the kernel,
+  which finds each span's diagonal itself; a CPU tensor takes the window
+  sort in ``ref.py``. ``width`` produces only the first output columns (the
+  merge tree clips every round to the receive bound).
+* :func:`merge` — whole-row merge of rows of any two widths: both sides are
+  padded with the sentinel to one power-of-two width ≥ 128 and merged.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...core.types import sentinel_for
+from .. import _build
+from . import ref
+
+#: output span per merge-path CTA (power of two ≤ 1024).
+TILE = 1024
+
+LAUNCHES = _build.counter("merge_sorted_tiles")
+
+
+def _pow2_at_least(n: int, floor: int = 128) -> int:
+    w = floor
+    while w < n:
+        w *= 2
+    return w
+
+
+def merge_partitioned(a: torch.Tensor, b: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
+    """Merge sorted (rows, W) pairs; returns the first ``width`` (default
+    2W) columns of each merged row, value-identical to a stable merge."""
+    if a.shape != b.shape or a.dtype != b.dtype or a.ndim != 2:
+        raise ValueError("a and b must be (rows, W) of one dtype")
+    rows, W = a.shape
+    out_w = 2 * W if width is None else min(width, 2 * W)
+    tile = min(TILE, _pow2_at_least(W))
+    if a.device.type == "cpu":
+        return ref.merge_windows(a.contiguous(), b.contiguous(), tile, out_w)
+    _build.check_cuda(a, "a")
+    _build.check_cuda(b, "b")
+    code = _build.dtype_code(a)
+    lib = _build.load()
+    out = torch.empty((rows, out_w), dtype=a.dtype, device=a.device)
+    rc = lib.repro_merge_path(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, W, out_w, tile, code,
+        _build.stream_handle(),
+    )
+    _build.check_launch(lib, rc, "merge_sorted_tiles")
+    LAUNCHES.n += 1
+    return out
+
+
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge sorted rows of a (rows, na) and b (rows, nb) -> (rows, na+nb)."""
+    squeeze = a.ndim == 1
+    if squeeze:
+        a, b = a[None, :], b[None, :]
+    na, nb = a.shape[1], b.shape[1]
+    sent = sentinel_for(a.dtype)
+    w = _pow2_at_least(max(na, nb))
+    ap = torch.nn.functional.pad(a, (0, w - na), value=sent).contiguous()
+    bp = torch.nn.functional.pad(b, (0, w - nb), value=sent).contiguous()
+    out = merge_partitioned(ap, bp, width=na + nb)
+    return out[0] if squeeze else out
