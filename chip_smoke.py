@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a machine with the card
 
@@ -9,29 +9,42 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 2. ``build``       — builds the CUDA kernels from ``src/repro_torch/csrc``
                      with nvcc for sm_90a; seconds and the ``-Xptxas -v``
                      register / shared-memory report.
-3. ``kernels``     — each kernel (K1 bitonic tile sort, K2 tagged ranks, K3
-                     merge-path merge) against its plain PyTorch version at
-                     the main path's shapes: outputs must be exactly equal.
+3. ``kernels``     — each kernel (K1 bitonic tile sort for int32, float32,
+                     uint32 and bfloat16 keys, K2 tagged ranks, K3
+                     merge-path merge, also on float windows with ±0.0 and
+                     NaN, K4 key-value tile sort) against its plain PyTorch
+                     version at the paths' shapes: bit for bit equal.
                      Times by CUDA events (warmed, median of repeats) beside
                      the kernel's bound and one PyTorch library call.
-4. ``small_parity``— the whole sort on the card against the plain path on
-                     the CPU at p=8, n_per_proc=512: byte-identical.
-5. ``main_path``   — ``bsp_sort_safe`` at the full-width configuration, the
-                     paper's largest point: n = 2^23 int32 keys on p = 128
-                     simulated processors, for U, DD and U with an int32
-                     payload; output checked against ``torch.sort``; every
-                     kernel must have launched during this phase.
+4. ``small_parity``— whole sorts on the card against the plain path on the
+                     CPU at p=8, n_per_proc=512, byte-identical: det, iran,
+                     ran, [BSI], the bitonic sample sort, float keys with
+                     ±0.0 and NaN, uint32 and bfloat16 keys.
+5. ``main_path``   — SORT_DET_BSP through ``bsp_sort_safe`` at the
+                     full-width configuration, the paper's largest point:
+                     n = 2^23 int32 keys on p = 128 simulated processors,
+                     for U, DD and U with an int32 payload; output checked
+                     against ``torch.sort``; K1, K2 and K3 must launch.
 6. ``ladder``      — the adversarial input (every run constant, distinct
                      per processor) at p = 128, n_per_proc = 8192 must walk
                      whp → whp2 → exact and come out sorted.
-7. ``profile``     — per full-width run: prepare and per-rung route times by
+7. ``iran_path``   — SORT_IRAN_BSP, the paper's randomized sort, at the same
+                     full width for U, DD and U with a payload (K1, K2 and
+                     K3 must launch); then once each SORT_RAN_BSP, [BSI]
+                     (28 compare-split supersteps) and SORT_DET_BSP with
+                     bfloat16 keys (K1 must launch on them) and uint32 keys.
+8. ``sort_kv_path``— the key-value tile sort ``kernels.bitonic.ops.sort_kv``
+                     as a caller would use it, rows of 16384: K4 must launch.
+9. ``profile``     — per full-width run: prepare and per-rung route times by
                      CUDA events; the device's busy share and its top
                      operations under ``torch.profiler``.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
-summary line, and as the last line ``{"ok": true, "device": {...}}``.
-Without a CUDA device, or without the repository beside it, the script
-exits nonzero and prints no result.
+summary line (``launches``: each kernel's launches over the path phases 5,
+7 and 8, each counted from zero just before the phase and read just after),
+and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
+device, or without the repository beside it, the script exits nonzero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -53,6 +66,8 @@ SLICE = dict(
     algorithm="det", local_sort="bitonic", merge="tree", merge_backend="pallas",
     pair_capacity="whp",
 )
+IRAN = dict(SLICE, algorithm="iran")
+INT_MIN = -(2**31)
 
 
 def emit(obj) -> None:
@@ -91,20 +106,34 @@ def time_ms(torch, fn, target_ms: float = 300.0, max_reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def library_time(torch, fn):
+    """``time_ms`` of a library call, or None where PyTorch lacks it for the dtype."""
+    try:
+        return time_ms(torch, fn)
+    except (NotImplementedError, RuntimeError):
+        return None
+
+
 def bound(bytes_moved: float, ops: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def bits(torch, t):
+    """The tensor's bits as an integer tensor of the same width."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
 def max_abs_err(torch, got, want, phase: str, what: str) -> float:
+    """0.0 if ``got`` equals ``want`` bit for bit; otherwise the run fails.
+
+    Bits, not values: NaN must meet NaN and -0.0 must meet -0.0."""
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(phase, f"{what}: {tuple(got.shape)}/{got.dtype} vs {tuple(want.shape)}/{want.dtype}")
-    diff = torch.where(got == want, 0.0, got.double() - want.double())
-    err = diff.abs().max().item() if got.numel() else 0.0
-    if not torch.equal(got, want):
-        fail(phase, f"{what}: kernel differs from its plain version (max abs err {err})")
-    return err
+    if not torch.equal(bits(torch, got.contiguous()), bits(torch, want.contiguous())):
+        fail(phase, f"{what}: kernel differs from its plain version in its bits")
+    return 0.0
 
 
 def sorted_rows(torch, rows, width, dtype, gen, sentinel_tails):
@@ -124,28 +153,69 @@ def phase_kernels(torch, mods):
     details, entries = [], {}
     int_max = torch.iinfo(torch.int32).max
 
-    # K1 — the main path's tiles: 128 runs x 4 tiles of 16384, and whole runs
+    # K1 — the main path's tiles: 128 runs x 4 tiles of 16384, and whole
+    # runs; every key dtype, with sentinel-valued and ±0.0 keys
     errs = []
-    for dtype in (torch.int32, torch.float32):
-        x = torch.randint(-(2**30), 2**30, (512, 16384), device="cuda", generator=gen).to(dtype)
-        x[:3, :100] = int_max if dtype == torch.int32 else float("inf")
+    for dtype in (torch.int32, torch.float32, torch.uint32, torch.bfloat16):
+        x = torch.randint(-(2**30), 2**30, (512, 16384), device="cuda", generator=gen)
+        if dtype == torch.uint32:
+            x = x.int() * 2
+            x[:3, :100] = -1  # the uint32 sentinel
+            x = x.view(torch.uint32)  # keys above 2^31 too
+        else:
+            x = x.to(dtype)
+            x[:3, :100] = int_max if dtype == torch.int32 else float("inf")
+            if dtype.is_floating_point:
+                x[3:6, :2000] = -0.0
+                x[3:6, 1000:3000] = 0.0
         errs.append(max_abs_err(torch, bops.sort_tiles(x), bref.sort_tiles(x), "kernels", f"K1 {dtype}"))
-        xm = torch.randint(-(2**30), 2**30, (128, 65536), device="cuda", generator=gen).to(dtype)
-        errs.append(max_abs_err(torch, bops.sort(xm), torch.sort(xm, dim=-1).values, "kernels", f"K1 multi-tile {dtype}"))
-        ms = time_ms(torch, lambda: bops.sort_tiles(x))
         rows, w = x.shape
         lg = int(math.log2(w))
-        b_ms, b_by = bound(2 * x.numel() * 4, rows * (w // 2) * lg * (lg + 1) // 2)
+        ms = time_ms(torch, lambda: bops.sort_tiles(x))
+        b_ms, b_by = bound(2 * x.numel() * x.element_size(), rows * (w // 2) * lg * (lg + 1) // 2)
         d = dict(kernel="K1", dtype=str(dtype), shape=[rows, w], ms=ms, bound_ms=b_ms,
                  plain_ms=time_ms(torch, lambda: bref.sort_tiles(x)),
-                 library_ms=time_ms(torch, lambda: torch.sort(x, dim=-1)),
-                 multi_tile_ms=time_ms(torch, lambda: bops.sort(xm)),
-                 multi_tile_shape=list(xm.shape))
+                 library_ms=library_time(torch, lambda: torch.sort(x, dim=-1)))
+        if dtype in (torch.int32, torch.float32):
+            xm = torch.randint(-(2**30), 2**30, (128, 65536), device="cuda", generator=gen).to(dtype)
+            errs.append(max_abs_err(torch, bops.sort(xm), torch.sort(xm, dim=-1).values, "kernels",
+                                    f"K1 multi-tile {dtype}"))
+            d.update(multi_tile_ms=time_ms(torch, lambda: bops.sort(xm)), multi_tile_shape=list(xm.shape))
         details.append(d)
         if dtype == torch.int32:
             entries["K1"] = dict(ms=ms, plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                                  library_ms=d["library_ms"])
     entries["K1"]["max_abs_err"] = max(errs)
+
+    # K4 — key-value tiles: int32 keys in [0, 50) (heavy ties) with int32
+    # values, and float32 keys with ±0.0; (512, 16384)
+    errs = []
+    for kind in ("int32", "float32"):
+        keys = torch.randint(0, 50, (512, 16384), device="cuda", generator=gen).int()
+        if kind == "float32":
+            keys = torch.tensor([-0.0, 0.0, 1.5, -2.0], device="cuda")[keys % 4]
+        vals = torch.arange(keys.numel(), dtype=torch.int32, device="cuda").reshape(keys.shape)
+        gk, gv = bops.sort_kv_tiles(keys, vals)
+        pk, pv = bref.sort_kv_tiles(keys, vals)
+        errs.append(max_abs_err(torch, gk, pk, "kernels", f"K4 keys {kind}"))
+        errs.append(max_abs_err(torch, gv, pv, "kernels", f"K4 values {kind}"))
+        rows, w = keys.shape
+        lg = int(math.log2(w))
+        ms = time_ms(torch, lambda: bops.sort_kv_tiles(keys, vals))
+        b_ms, b_by = bound(2 * keys.numel() * 8, rows * (w // 2) * lg * (lg + 1) // 2)
+
+        def library():  # two calls: a stable sort of the keys, then a gather
+            order = torch.sort(keys, dim=-1, stable=True)
+            return order.values, vals.gather(-1, order.indices)
+
+        d = dict(kernel="K4", keys=kind, values="int32", shape=[rows, w], ms=ms, bound_ms=b_ms,
+                 plain_ms=time_ms(torch, lambda: bref.sort_kv_tiles(keys, vals)),
+                 library_ms=time_ms(torch, library), library="torch.sort + gather (two calls)")
+        details.append(d)
+        if kind == "int32":
+            entries["K4"] = dict(ms=ms, plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=d["library_ms"])
+    entries["K4"]["max_abs_err"] = max(errs)
 
     # K2 — rank-merge ranks: round 1 (8192 rows of 1256) and the last round
     # (rows of 79008); both sides; sentinel-valued queries and tails
@@ -201,20 +271,51 @@ def phase_kernels(torch, mods):
         if w == 1256:
             entries["K3"] = dict(ms=ms, plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                                  library_ms=d["library_ms"])
+    # float32 windows with ±0.0 and NaN: runs as a bitonic network leaves
+    # them (NaNs in place), so the diagonals come from the replayed search
+    choice = torch.tensor([-0.0, 0.0, float("nan"), 1.0, -1.0], device="cuda")
+    rows, w, out_w = 8192, 1256, 2512
+    fa = choice[torch.randint(0, 5, (rows, w), device="cuda", generator=gen)]
+    fb = choice[torch.randint(0, 5, (rows, w), device="cuda", generator=gen)]
+    tile = min(mops.TILE, mops._pow2_at_least(w))
+    errs.append(max_abs_err(torch, mops.merge_partitioned(fa, fb, width=out_w),
+                            mref.merge_windows(fa, fb, tile, out_w), "kernels", "K3 float32 ±0/NaN"))
+    spans = -(-out_w // tile)
+    lg = int(math.log2(2 * tile))
+    b_ms, _ = bound((2 * fa.numel() + rows * out_w) * 4, rows * spans * tile * lg)
+    details.append(dict(kernel="K3", dtype="float32 ±0.0/NaN", shape=[rows, w], out_width=out_w,
+                        ms=time_ms(torch, lambda: mops.merge_partitioned(fa, fb, width=out_w)),
+                        bound_ms=b_ms,
+                        plain_ms=time_ms(torch, lambda: mref.merge_windows(fa, fb, tile, out_w)),
+                        library_ms=time_ms(torch, lambda: torch.sort(torch.cat([fa, fb], dim=-1), dim=-1))))
     entries["K3"]["max_abs_err"] = max(errs)
     emit({"phase": "kernels", "ok": True, "details": details})
     return entries
 
 
+def sorted_reference(torch, x):
+    """``torch.sort`` of the flattened keys (uint32 through its order-keeping bias)."""
+    flat = x.flatten()
+    if x.dtype == torch.uint32:
+        return ((torch.sort(flat.view(torch.int32) ^ INT_MIN).values) ^ INT_MIN).view(torch.uint32)
+    return torch.sort(flat).values
+
+
+def stable_order(torch, x):
+    flat = x.flatten()
+    if x.dtype == torch.uint32:
+        flat = flat.view(torch.int32) ^ INT_MIN
+    return torch.sort(flat, stable=True).indices
+
+
 def check_sort(torch, core, x, vals, res, pvals, stats, phase, what):
     out = core.gathered_output(res)
-    if not torch.equal(out, torch.sort(x.flatten()).values):
+    if not torch.equal(bits(torch, out), bits(torch, sorted_reference(torch, x))):
         fail(phase, f"{what}: output is not the sorted input")
     if vals:
-        order = torch.sort(x.flatten(), stable=True).indices
         counts = res.count.tolist()
         got = torch.cat([pvals[0][k, :c] for k, c in enumerate(counts)])
-        if not torch.equal(got, vals[0].flatten()[order]):
+        if not torch.equal(got, vals[0].flatten()[stable_order(torch, x)]):
             fail(phase, f"{what}: payload is not the stable-argsort gather")
     row = stats.as_row()
     walked = [k[len("tier_"):] for k in row if k.startswith("tier_")]
@@ -223,19 +324,53 @@ def check_sort(torch, core, x, vals, res, pvals, stats, phase, what):
     return walked
 
 
+def parity_input(torch, core, dist, dtype):
+    """(8, 512) keys of one distribution, as a CPU tensor of ``dtype``."""
+    import numpy as np
+
+    if dist in ("signed_zeros", "nans"):
+        rng = np.random.default_rng(0)
+        choice = [-0.0, 0.0, 2.0] if dist == "signed_zeros" else [np.nan, -np.nan, 1.0, -1.0, 0.5]
+        return torch.from_numpy(np.asarray(choice, np.float32)[rng.integers(0, len(choice), (8, 512))])
+    x = torch.from_numpy(adversarial(8, 512) if dist == "adversarial" else core.datagen.generate(dist, 8, 512))
+    if dtype == torch.uint32:
+        return (x * 7919 - 2**30).view(torch.uint32)  # keys above 2^31 too
+    return x.to(dtype)
+
+
+#: (name, config overrides, distribution, key dtype, payloads)
+PARITY_CASES = (
+    ("det U+payload", SLICE, "U", "int32", 1),
+    ("det DD", SLICE, "DD", "int32", 0),
+    ("det adversarial+payload", SLICE, "adversarial", "int32", 1),
+    ("iran U+payload", IRAN, "U", "int32", 1),
+    ("iran DD", IRAN, "DD", "int32", 0),
+    ("ran U", dict(algorithm="ran", pair_capacity="whp"), "U", "int32", 0),
+    ("bitonic [BSI] U", dict(algorithm="bitonic", local_sort="bitonic"), "U", "int32", 0),
+    ("iran bitonic sample sort U", dict(IRAN, sample_sort="bitonic"), "U", "int32", 0),
+    ("det float32 ±0.0", SLICE, "signed_zeros", "float32", 0),
+    ("det float32 ±0.0+payload", SLICE, "signed_zeros", "float32", 1),
+    ("det float32 NaN", SLICE, "nans", "float32", 0),
+    ("det uint32", SLICE, "U", "uint32", 0),
+    ("det bfloat16", SLICE, "U", "bfloat16", 0),
+)
+
+
 def phase_small_parity(torch, core):
-    for dist, nv in (("U", 1), ("DD", 0), ("adversarial", 1)):
-        x = adversarial(8, 512) if dist == "adversarial" else core.datagen.generate(dist, 8, 512)
+    for name, overrides, dist, dtype, nv in PARITY_CASES:
+        x = parity_input(torch, core, dist, getattr(torch, dtype))
         vals = [torch.arange(8 * 512, dtype=torch.int32).reshape(8, 512)][:nv]
-        cfg = core.SortConfig(p=8, n_per_proc=512, **SLICE)
-        gres, gvals, gst = core.bsp_sort_safe(x, cfg, values=[v.cuda() for v in vals])
+        cfg = core.SortConfig(p=8, n_per_proc=512, **overrides)
+        gres, gvals, gst = core.bsp_sort_safe(x.cuda(), cfg, values=[v.cuda() for v in vals])
         cres, cvals, cst = core.bsp_sort_safe(x, cfg, values=vals, device="cpu")
-        same = (torch.equal(gres.buf.cpu(), cres.buf) and torch.equal(gres.count.cpu(), cres.count)
+        same = (gres.buf.dtype == cres.buf.dtype
+                and torch.equal(bits(torch, gres.buf.cpu()), bits(torch, cres.buf))
+                and torch.equal(gres.count.cpu(), cres.count)
                 and bool(gres.overflow) == bool(cres.overflow) and gst.as_row() == cst.as_row()
                 and all(torch.equal(g.cpu(), c) for g, c in zip(gvals, cvals)))
         if not same:
-            fail("small_parity", f"{dist}: card and CPU results differ")
-    emit({"phase": "small_parity", "ok": True, "cases": ["U+payload", "DD", "adversarial+payload"]})
+            fail("small_parity", f"{name}: card and CPU results differ")
+    emit({"phase": "small_parity", "ok": True, "cases": [c[0] for c in PARITY_CASES]})
 
 
 def run_sort(torch, core, x, vals, cfg):
@@ -246,30 +381,99 @@ def run_sort(torch, core, x, vals, cfg):
     return time.perf_counter() - t0, res, pvals, stats
 
 
-def phase_main_path(torch, core, build):
-    cfg = core.SortConfig(**FULL, **SLICE)
-    n = cfg.n
+KERNEL_NAMES = ("bitonic_sort_tiles", "splitter_ranks", "merge_sorted_tiles", "bitonic_sort_kv_tiles")
+
+
+def full_width_runs(torch, core, cfg, phase):
+    """U, DD and U + int32 payload through ``bsp_sort_safe``, first call and warm."""
     runs = []
-    build.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
     for dist, nv in (("U", 0), ("DD", 0), ("U", 1)):
         x = torch.from_numpy(core.datagen.generate(dist, cfg.p, cfg.n_per_proc)).cuda()
-        vals = [torch.arange(n, dtype=torch.int32, device="cuda").reshape(cfg.p, cfg.n_per_proc)][:nv]
+        vals = [torch.arange(cfg.n, dtype=torch.int32, device="cuda").reshape(cfg.p, cfg.n_per_proc)][:nv]
         walls = []
         for _ in range(2):  # first call, then a warm one
             wall, res, pvals, stats = run_sort(torch, core, x, vals, cfg)
             walls.append(wall)
-            walked = check_sort(torch, core, x, vals, res, pvals, stats, "main_path",
+            walked = check_sort(torch, core, x, vals, res, pvals, stats, phase,
                                 f"{dist}{'+payload' if nv else ''}")
         runs.append(dict(dist=dist, payload=bool(nv), tiers=walked, wall_s=walls,
-                         keys_per_s=n / walls[-1]))
-    launches = build.counts()
-    for name in ("bitonic_sort_tiles", "splitter_ranks", "merge_sorted_tiles"):
+                         keys_per_s=cfg.n / walls[-1]))
+    return runs
+
+
+def require_launched(launches, names, phase, what="the path"):
+    for name in names:
         if launches.get(name, 0) <= 0:
-            fail("main_path", f"kernel {name} was not launched on the main path")
+            fail(phase, f"kernel {name} was not launched on {what}")
+
+
+def phase_main_path(torch, core, build):
+    cfg = core.SortConfig(**FULL, **SLICE)
+    build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = full_width_runs(torch, core, cfg, "main_path")
+    launches = build.counts()
+    require_launched(launches, KERNEL_NAMES[:3], "main_path")
     emit({"phase": "main_path", "ok": True, "config": dict(**FULL, **SLICE),
-          "n": n, "s": cfg.s, "pair_cap": cfg.pair_cap, "n_max": cfg.n_max, "runs": runs,
+          "n": cfg.n, "s": cfg.s, "pair_cap": cfg.pair_cap, "n_max": cfg.n_max, "runs": runs,
           "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return launches
+
+
+def phase_iran_path(torch, core, build):
+    """SORT_IRAN_BSP at full width, then one run each of the other sorts and dtypes."""
+    cfg = core.SortConfig(**FULL, **IRAN)
+    build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runs = full_width_runs(torch, core, cfg, "iran_path")
+    require_launched(build.counts(), KERNEL_NAMES[:3], "iran_path")
+    u = torch.from_numpy(core.datagen.generate("U", cfg.p, cfg.n_per_proc)).cuda()
+    others = []
+    for name, overrides, x in (
+        ("ran U", dict(algorithm="ran", pair_capacity="whp"), u),
+        ("bitonic [BSI] U", dict(algorithm="bitonic", local_sort="bitonic"), u),
+        ("det bfloat16 U", SLICE, u.to(torch.bfloat16)),
+        ("det uint32 U", SLICE, (u * 7919 - 2**30).view(torch.uint32)),
+    ):
+        ocfg = core.SortConfig(**FULL, **overrides)
+        before = build.counts().get("bitonic_sort_tiles", 0)
+        wall, res, pvals, stats = run_sort(torch, core, x, [], ocfg)
+        walked = check_sort(torch, core, x, [], res, pvals, stats, "iran_path", name)
+        others.append(dict(run=name, tiers=walked, wall_s=wall, keys_per_s=ocfg.n / wall))
+        if x.dtype == torch.bfloat16 and build.counts().get("bitonic_sort_tiles", 0) <= before:
+            fail("iran_path", "K1 did not launch on bfloat16 keys")
+    launches = build.counts()
+    emit({"phase": "iran_path", "ok": True, "config": dict(**FULL, **IRAN), "n": cfg.n,
+          "s": cfg.s, "pair_cap": cfg.pair_cap, "n_max": cfg.n_max, "runs": runs,
+          "others": others, "launches": launches,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return launches
+
+
+def phase_sort_kv_path(torch, bops, build):
+    """``sort_kv`` as a caller would use it: (key, value) rows of 16384, and
+    one 1-D row; output sorted by key, every (key, value) pair kept."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    keys = torch.randint(0, 1000, (512, 16384), device="cuda", generator=gen).int()
+    vals = torch.arange(keys.numel(), device="cuda").reshape(keys.shape)
+    build.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ko, vo = bops.sort_kv(keys, vals)
+    k1, v1 = bops.sort_kv(keys[0, :10000], vals[0, :10000])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.counts()
+    require_launched(launches, KERNEL_NAMES[3:], "sort_kv_path", "sort_kv")
+    for k, v, x, xv in ((ko, vo, keys, vals), (k1[None], v1[None], keys[:1, :10000], vals[:1, :10000])):
+        if not torch.equal(k, torch.sort(x, dim=-1).values):
+            fail("sort_kv_path", "keys are not sorted")
+        if not torch.equal(x.gather(-1, v - v.min(dim=-1, keepdim=True).values), k):
+            fail("sort_kv_path", "a value left its key")
+        if not torch.equal(torch.sort(v, dim=-1).values, xv):
+            fail("sort_kv_path", "values are not a permutation of the input's")
+    emit({"phase": "sort_kv_path", "ok": True, "shape": list(keys.shape), "wall_s": wall,
+          "launches": launches})
     return launches
 
 
@@ -290,21 +494,24 @@ def phase_ladder(torch, core):
 
 
 def phase_profile(torch, core):
-    """Where the main path's time goes: stage times by CUDA events, and the
+    """Where the full-width time goes: stage times by CUDA events, and the
     device's busy share and top operations under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.sort_det import prepare_det_spmd, route_det_spmd
+    from repro_torch.core.api import _PIPELINES, _positions
 
-    cfg = core.SortConfig(**FULL, **SLICE)
     cells = []
-    for dist, nv in (("U", 0), ("DD", 0), ("U", 1)):
+    for algo, dist, nv in (("det", "U", 0), ("det", "DD", 0), ("det", "U", 1),
+                           ("iran", "U", 0), ("iran", "U", 1)):
+        cfg = core.SortConfig(**FULL, **(SLICE if algo == "det" else IRAN))
+        prepare, route = _PIPELINES[algo]
         x = torch.from_numpy(core.datagen.generate(dist, cfg.p, cfg.n_per_proc)).cuda()
         vals = [torch.arange(cfg.n, dtype=torch.int32, device="cuda").reshape(x.shape)][:nv]
-        stages = {"prepare": time_ms(torch, lambda: prepare_det_spmd(x, cfg, vals), target_ms=50)}
-        prep = prepare_det_spmd(x, cfg, vals)
-        for tier, tier_cfg in cfg.tier_ladder()[:-1]:
-            stages[f"route_{tier}"] = time_ms(torch, lambda: route_det_spmd(prep, tier_cfg), target_ms=50)
+        stages = {"prepare": time_ms(torch, lambda: prepare(x, cfg, vals), target_ms=50)}
+        prep = prepare(x, cfg, vals)
+        for rung, (tier, tier_cfg) in enumerate(cfg.tier_ladder()[:-1]):
+            pos = _positions(tier_cfg, rung, None, x.device)
+            stages[f"route_{tier}"] = time_ms(torch, lambda: route(prep, tier_cfg, pos), target_ms=50)
         wall_ms = run_sort(torch, core, x, vals, cfg)[0] * 1e3
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
@@ -325,7 +532,7 @@ def phase_profile(torch, core):
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
         # idle share against the unprofiled wall: the profiler slows the host
-        cells.append(dict(dist=dist, payload=bool(nv), stage_ms=stages, wall_ms=wall_ms,
+        cells.append(dict(algorithm=algo, dist=dist, payload=bool(nv), stage_ms=stages, wall_ms=wall_ms,
                           profiled_wall_ms=profiled_ms, device_busy_ms=busy,
                           idle_share=max(0.0, 1 - busy / wall_ms),
                           top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:8]]))
@@ -357,7 +564,12 @@ def main() -> int:
 
     entries = phase_kernels(torch, (bops, bref, sops, sref, mops, mref))
     phase_small_parity(torch, core)
-    launches = phase_main_path(torch, core, build)
+    # launches over the path phases, each counted from zero by the phase
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for counted in (phase_main_path(torch, core, build), phase_iran_path(torch, core, build),
+                    phase_sort_kv_path(torch, bops, build)):
+        for name in KERNEL_NAMES:
+            launches[name] += counted.get(name, 0)
     phase_ladder(torch, core)
     phase_profile(torch, core)
 
@@ -368,6 +580,8 @@ def main() -> int:
                "src/repro/kernels/searchsorted/kernel.py:47"),
         "K3": ("merge_sorted_tiles", "src/repro_torch/csrc/merge_path.cu",
                "src/repro/kernels/merge_path/kernel.py:39"),
+        "K4": ("bitonic_sort_kv_tiles", "src/repro_torch/csrc/bitonic_sort.cu",
+               "src/repro/kernels/bitonic/kernel.py:125"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

@@ -1,4 +1,5 @@
-"""BSP sorting over p simulated processors (the port's main path).
+"""BSP sorting over p simulated processors: SORT_DET_BSP, SORT_IRAN_BSP,
+SORT_RAN_BSP and [BSI] (``SortConfig.algorithm``).
 
 Public API:
     SortConfig, SortResult, PreparedSort — configuration / result types

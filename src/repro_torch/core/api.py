@@ -1,17 +1,28 @@
-"""Public entry points of the port: SORT_DET_BSP on p simulated processors.
+"""Public entry points of the port: the paper's sorts on p simulated processors.
 
 * :func:`bsp_sort` — one sort of a (p, n_per_proc) array at the
   configuration's capacity; the result carries the ``overflow`` flag.
 * :func:`bsp_sort_safe` / :func:`bsp_sort_safe_launch` — the overflow-safe
-  driver: prepare (Ph2 + Ph3) once, then run the route stage (Ph4–Ph6) at
-  each rung of ``SortConfig.tier_ladder()`` until the flag is clean. The
-  terminal rung's receive buffer holds the whole input, so no key is ever
-  dropped. :class:`InFlightSort` splits it at the one host sync: reading a
-  rung's overflow flag.
+  sort: prepare once, then run the route stage at each rung of
+  ``SortConfig.tier_ladder()`` until the flag is clean. The terminal rung's
+  receive buffer holds the whole input, so no key is ever dropped.
+  :class:`InFlightSort` splits it at the one host sync: reading a rung's
+  overflow flag.
 
+``algorithm`` is ``det`` (SORT_DET_BSP), ``iran`` (SORT_IRAN_BSP), ``ran``
+(SORT_RAN_BSP) or ``bitonic`` ([BSI]), with ``route="sample"``. The
+randomized sorts draw their sample positions from ``generator``, a CPU
+``torch.Generator``, the counterpart of the JAX package's ``rng``: every
+rung draws the next positions from it. Without one, rung r draws from a
+generator seeded from ``(cfg.seed, r)``. Either way the card and the CPU
+take the same sample; ``jax.random``'s own draws cannot be reproduced.
+
+Keys are int32, uint32, float32 or bfloat16 (the kernels' dtypes; the
+plain path takes the other dtypes ``torch.sort`` takes). uint32 keys are
+carried as order-keeping biased int32 from entry to exit, since torch
+lacks uint32 gathers and compares.
 Entry points run on the CUDA device unless the caller passes ``device``
 (the tests pass ``"cpu"``); with no card and no device given they raise.
-Only ``algorithm="det"`` with ``route="sample"`` is ported so far.
 """
 from __future__ import annotations
 
@@ -20,22 +31,58 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .sort_det import prepare_det_spmd, route_det_spmd, sort_det_spmd
-from .types import SortConfig, SortResult, resolve_device
+from . import primitives as prim
+from .bitonic import sort_bitonic_spmd
+from .sort_det import prepare_det_spmd, route_det_spmd
+from .sort_iran import prepare_iran_spmd, route_iran_spmd
+from .sort_ran import prepare_ran_spmd, route_ran_spmd
+from .splitters import sample_positions
+from .types import PreparedSort, SortConfig, SortResult, resolve_device
+
+
+def _prepare_bitonic_spmd(x, cfg, values=()) -> PreparedSort:
+    """[BSI] is perfectly balanced (a single-rung ladder): nothing to carry."""
+    return PreparedSort(xs=x, vals=tuple(values), splits=None)
+
+
+def _route_bitonic_spmd(prep: PreparedSort, cfg: SortConfig, positions=None):
+    return sort_bitonic_spmd(prep.xs, cfg, values=list(prep.vals))
+
+
+def _route_det(prep: PreparedSort, cfg: SortConfig, positions=None):
+    return route_det_spmd(prep, cfg)
+
+
+#: algorithm -> (prepare(x, cfg, values), route(prep, cfg, positions));
+#: the sort body is route(prepare(x)).
+_PIPELINES = {
+    "det": (prepare_det_spmd, _route_det),
+    "iran": (prepare_iran_spmd, route_iran_spmd),
+    "ran": (prepare_ran_spmd, route_ran_spmd),
+    "bitonic": (_prepare_bitonic_spmd, _route_bitonic_spmd),
+}
+_RANDOMIZED = ("iran", "ran")
 
 
 def _check_ported(cfg: SortConfig) -> None:
     cfg.validate()
-    if cfg.algorithm != "det" or cfg.route != "sample":
+    if cfg.route != "sample":
         raise NotImplementedError(
-            f"algorithm={cfg.algorithm!r}, route={cfg.route!r} is not ported yet "
-            "(only det/sample; see ROADMAP.md, queue 1)"
+            f"route={cfg.route!r} is not ported yet (see ROADMAP.md, queue 1)"
         )
+    if cfg.routing == "ring" and cfg.algorithm != "bitonic":
+        raise NotImplementedError("routing='ring' is not ported yet (see ROADMAP.md, queue 1)")
 
 
-def _inputs(x, values, device) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+def _inputs(x, values, device) -> Tuple[torch.Tensor, List[torch.Tensor], torch.dtype]:
+    """Tensors on the run's device, uint32 keys biased to int32; and the
+    keys' own dtype, which :func:`_result` restores."""
     dev = resolve_device(device)
-    return torch.as_tensor(x, device=dev), [torch.as_tensor(v, device=dev) for v in values]
+    x = torch.as_tensor(x, device=dev)
+    key_dtype = x.dtype
+    if key_dtype == torch.uint32:
+        x = prim.bias_unsigned(x)
+    return x, [torch.as_tensor(v, device=dev) for v in values], key_dtype
 
 
 def _config(x: torch.Tensor, cfg: Optional[SortConfig], overrides) -> SortConfig:
@@ -48,7 +95,22 @@ def _config(x: torch.Tensor, cfg: Optional[SortConfig], overrides) -> SortConfig
     return cfg
 
 
-def _result(buf, vbufs, count, overflow) -> Tuple[SortResult, List[torch.Tensor]]:
+def _rung_generator(cfg: SortConfig, rung: int, generator: Optional[torch.Generator]):
+    """The generator rung ``rung`` draws its sample from (see module doc)."""
+    if generator is not None:
+        return generator
+    return torch.Generator().manual_seed((cfg.seed * 1_000_003 + rung) % (2**63))
+
+
+def _positions(cfg: SortConfig, rung: int, generator, device) -> Optional[torch.Tensor]:
+    if cfg.algorithm not in _RANDOMIZED:
+        return None
+    return sample_positions(cfg, _rung_generator(cfg, rung, generator), device)
+
+
+def _result(buf, vbufs, count, overflow, key_dtype) -> Tuple[SortResult, List[torch.Tensor]]:
+    if key_dtype == torch.uint32:
+        buf = prim.unbias_unsigned(buf)
     return SortResult(buf=buf, count=count, overflow=overflow.any()), list(vbufs)
 
 
@@ -57,13 +119,16 @@ def bsp_sort(
     cfg: Optional[SortConfig] = None,
     *,
     values: Sequence = (),
+    generator: Optional[torch.Generator] = None,
     device=None,
     **overrides,
 ) -> Tuple[SortResult, List[torch.Tensor]]:
     """Sort a (p, n_per_proc) array with simulated processors (one tier)."""
-    x, values = _inputs(x, values, device)
+    x, values, key_dtype = _inputs(x, values, device)
     cfg = _config(x, cfg, overrides)
-    return _result(*sort_det_spmd(x, cfg, values))
+    prepare, route = _PIPELINES[cfg.algorithm]
+    out = route(prepare(x, cfg, values), cfg, _positions(cfg, 0, generator, x.device))
+    return _result(*out, key_dtype)
 
 
 # ------------------------------------------------- overflow-safe drivers
@@ -103,7 +168,9 @@ class InFlightSort:
     Construction enqueues the first rung's route stage on the device and
     returns (PyTorch's CUDA calls are asynchronous). :meth:`wait` is the
     only host sync: it reads the rung's overflow flag and, on a fault,
-    launches the next rung. ``run_tier(tier_cfg) -> (SortResult, vbufs)``.
+    launches the next rung. ``run_tier(tier_cfg, rung) -> (SortResult,
+    vbufs)``; ``rung`` is the rung's index, from which a randomized sort
+    draws a fresh sample.
     ``wait`` is idempotent.
     """
 
@@ -113,7 +180,7 @@ class InFlightSort:
         self._run_tier = run_tier
         self._out: Optional[Tuple[SortResult, List[torch.Tensor], TierStats]] = None
         self._i = 0
-        self._pending = run_tier(ladder[0][1])
+        self._pending = run_tier(ladder[0][1], 0)
 
     def wait(self) -> Tuple[SortResult, List[torch.Tensor], TierStats]:
         """Block until a rung's overflow flag is clean; escalate on faults."""
@@ -134,7 +201,7 @@ class InFlightSort:
                     "allgather/full tier cannot overflow (ladder: "
                     f"{[t for t, _ in self._ladder]})"
                 )
-            self._pending = self._run_tier(self._ladder[self._i][1])
+            self._pending = self._run_tier(self._ladder[self._i][1], self._i)
 
 
 def bsp_sort_safe_launch(
@@ -143,16 +210,19 @@ def bsp_sort_safe_launch(
     *,
     values: Sequence = (),
     stats: Optional[TierStats] = None,
+    generator: Optional[torch.Generator] = None,
     device=None,
     **overrides,
 ) -> InFlightSort:
     """Launch an overflow-safe sort: prepare once, enqueue the first rung."""
-    x, values = _inputs(x, values, device)
+    x, values, key_dtype = _inputs(x, values, device)
     cfg = _config(x, cfg, overrides)
-    prep = prepare_det_spmd(x, cfg, values)
+    prepare, route = _PIPELINES[cfg.algorithm]
+    prep = prepare(x, cfg, values)
 
-    def run_tier(tier_cfg: SortConfig):
-        return _result(*route_det_spmd(prep, tier_cfg))
+    def run_tier(tier_cfg: SortConfig, rung: int):
+        positions = _positions(tier_cfg, rung, generator, x.device)
+        return _result(*route(prep, tier_cfg, positions), key_dtype)
 
     return InFlightSort(cfg.tier_ladder(), stats, run_tier)
 
@@ -163,6 +233,7 @@ def bsp_sort_safe(
     *,
     values: Sequence = (),
     stats: Optional[TierStats] = None,
+    generator: Optional[torch.Generator] = None,
     device=None,
     **overrides,
 ) -> Tuple[SortResult, List[torch.Tensor], TierStats]:
@@ -172,7 +243,7 @@ def bsp_sort_safe(
     :func:`bsp_sort_safe_launch`.
     """
     return bsp_sort_safe_launch(
-        x, cfg, values=values, stats=stats, device=device, **overrides
+        x, cfg, values=values, stats=stats, generator=generator, device=device, **overrides
     ).wait()
 
 

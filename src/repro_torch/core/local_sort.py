@@ -1,10 +1,11 @@
 """Ph2 — stable local sort of every processor's run, by the configured method.
 
-``lax``     — ``torch.sort(stable=True)`` (the JAX package's ``lax.sort``
+``lax``     — a stable sort (the JAX package's ``lax.sort``
               role); payloads follow by a gather with the stable argsort.
 ``bitonic`` — the hand-written bitonic tile-sort kernel (K1) for key-only
-              sorts of the dtypes it takes; key-value and other dtypes take
-              ``lax``, as in the JAX package.
+              sorts of the dtypes it takes (int32, uint32, float32,
+              bfloat16); key-value and other dtypes take ``lax``, as in
+              the JAX package.
 ``radix``   — not ported yet (ROADMAP, queue 1).
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..kernels.bitonic import ops as bitonic_ops
-from .primitives import take_rows
+from .primitives import stable_sort, take_rows
 
 
 def local_sort(
@@ -28,6 +29,6 @@ def local_sort(
     if method == "bitonic" and not values and bitonic_ops.supports(x):
         return bitonic_ops.sort(x), []
     if not values:
-        return torch.sort(x, dim=-1, stable=True).values, []
-    perm = torch.sort(x, dim=-1, stable=True).indices
-    return x.gather(-1, perm), [take_rows(v, perm) for v in values]
+        return stable_sort(x)[0], []
+    xs, perm = stable_sort(x)
+    return xs, [take_rows(v, perm) for v in values]

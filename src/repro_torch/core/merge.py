@@ -22,6 +22,7 @@ import torch
 
 from ..kernels.merge_path import ops as mp_ops
 from ..kernels.searchsorted import ops as ss_ops
+from . import primitives as prim
 from .primitives import take_rows
 from .types import sentinel_for
 
@@ -30,19 +31,21 @@ def merge_by_sort(
     buf: torch.Tensor, values: Sequence[torch.Tensor] = ()
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Stable re-sort of (p, cap) buffers (+ payloads); pads stay at the tail."""
-    if not values:
-        return torch.sort(buf, dim=-1, stable=True).values, []
-    perm = torch.sort(buf, dim=-1, stable=True).indices
-    return buf.gather(-1, perm), [take_rows(v, perm) for v in values]
+    merged, perm = prim.stable_sort(buf)
+    return merged, [take_rows(v, perm) for v in values]
 
 
-def _rank(data: torch.Tensor, queries: torch.Tensor, side: str, backend: str) -> torch.Tensor:
-    """int32 searchsorted ranks of (R, S) queries in the sorted (R, n) runs."""
+def _rank(
+    data: torch.Tensor, queries: torch.Tensor, side: str, backend: str, exact: bool
+) -> torch.Tensor:
+    """int32 searchsorted ranks of (R, S) queries in the sorted (R, n) runs.
+
+    ``exact`` (float keys) replays ``jnp.searchsorted``'s probes, which
+    decide where a NaN lands in a run the network left unsorted.
+    """
     if backend == "pallas":
         return ss_ops.rank_in(data, queries, side=side)
-    return torch.searchsorted(
-        data.contiguous(), queries.contiguous(), side=side, out_int32=True
-    )
+    return prim.searchsorted(data, queries, side, exact)
 
 
 def _mask_rows(valid: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -84,12 +87,13 @@ def _rank_merge_two(
         out = torch.where(valid, ks[:, :w_out], sent)
         vout = [_mask_rows(valid, v[:, :w_out]) for v in vs]
         return out, vout, torch.clamp(cs, max=w_out)
-    ra = torch.minimum(_rank(kb, ka, "left", backend), cb[:, None])
+    exact = ka.is_floating_point()
+    ra = torch.minimum(_rank(kb, ka, "left", backend, exact), cb[:, None])
     ia = torch.arange(wa, dtype=torch.int32, device=dev)
     # invalid (padded) a-entries park past every output slot, keeping pos_a
     # strictly increasing so the inverse search below stays well-defined
     pos_a = torch.where(ia < ca[:, None], ia + ra, w2 + ia)
-    A = _rank(pos_a, o, "right", backend)  # a-elements at output slots <= o
+    A = _rank(pos_a, o, "right", backend, exact)  # a-elements at output slots <= o
     prev = torch.clamp(A - 1, min=0)
     from_a = (A > 0) & (pos_a.gather(1, prev.long()) == o)
     take = torch.where(from_a, prev, torch.clamp(wa + o - A, max=w2 - 1)).long()

@@ -1,19 +1,24 @@
-"""Sampling and splitter machinery of SORT_DET_BSP (Fig. 1 steps 4–9).
+"""Sampling and splitter machinery (Fig. 1 steps 4–9, Fig. 3 step 4).
 
 * deterministic regular oversampling — s evenly spaced keys of every run
   (+ the local max by saturation), Fig. 1 step 4;
+* randomized oversampling — s positions of every run, drawn by the caller
+  (:func:`sample_positions`; the JAX package draws them from ``jax.random``,
+  which torch cannot reproduce, so its tests hand both packages the same
+  positions), Fig. 3 step 4;
 * transparent duplicate tagging (§5.1.1): only sample/splitter records
   carry explicit (processor, index) tags;
-* parallel sample sort by gather: the o(n) sample of all processors is
-  sorted with one stable lexicographic sort (every processor would compute
-  the same result, so it is computed once and replicated);
+* parallel sample sort by ``gather`` (the o(n) sample of all processors is
+  sorted with one stable lexicographic sort, computed once and replicated)
+  or by ``bitonic`` (Batcher's compare-split over the processor dimension,
+  the paper's scheme);
 * :func:`searchsorted_tagged` — Ph4's vectorized binary search of the
   tagged splitters in every sorted run under the (key, proc, idx) order.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,17 +40,73 @@ def regular_sample(x_sorted: torch.Tensor, cfg: SortConfig) -> Tagged:
     return keys, procs, idx.expand(p, s)
 
 
+def sample_positions(cfg: SortConfig, generator: torch.Generator, device) -> torch.Tensor:
+    """(p, s) int32 uniform positions in every run, drawn on the host.
+
+    Drawn from a CPU generator so the card and the CPU take the same sample.
+    Sorted per processor for ``iran`` (the run is sorted, so sorting the
+    positions sorts the sample), left as drawn for ``ran``.
+    """
+    pos = torch.randint(0, cfg.n_per_proc, (cfg.p, cfg.s), generator=generator)
+    if cfg.algorithm == "iran":
+        pos = torch.sort(pos, dim=1).values
+    return pos.to(device=device, dtype=torch.int32)
+
+
+def random_sample(x_sorted: torch.Tensor, positions: torch.Tensor) -> Tagged:
+    """The keys of every run (p, n_p) at its positions (p, s), tagged."""
+    p, s = positions.shape
+    procs = prim.proc_id(p, x_sorted.device)[:, None].expand(p, s)
+    idx = positions.to(torch.int32)
+    return prim.take_rows(x_sorted, idx), procs, idx
+
+
 def sample_sort_gather(sample: Tagged) -> Tagged:
     """All-gather the sample (proc-major) and sort it lexicographically."""
     gathered = tuple(a.reshape(-1) for a in sample)
     return prim.lex_sort(gathered, num_keys=3)
 
 
-def select_splitters(cfg: SortConfig, sorted_sample: Tagged) -> Tagged:
-    """Fig. 1 step 6: the p-1 splitters at positions i·s-1, replicated (p, p-1)."""
+def _merge_split_tagged(a: Tagged, b: Tagged, keep_low: torch.Tensor) -> Tagged:
+    """Bitonic compare-split: merge two sorted tagged runs, keep one half."""
+    m = a[0].shape[1]
+    cat = tuple(torch.cat([ai, bi], dim=1) for ai, bi in zip(a, b))
+    merged = prim.lex_sort(cat, num_keys=3)
+    return tuple(torch.where(keep_low, t[:, :m], t[:, m:]) for t in merged)
+
+
+def sample_sort_bitonic(sample: Tagged, p: int) -> Tagged:
+    """Batcher's bitonic sort of the tagged sample over the processors.
+
+    Every run (p, s) must be sorted already. lg p · (lg p + 1)/2
+    compare-split supersteps, each one exchange with the XOR partner.
+    """
+    lgp = int(math.log2(p))
+    me = prim.proc_id(p, sample[0].device)
+    cur = tuple(a.contiguous() for a in sample)
+    for i in range(lgp):
+        for j in range(i, -1, -1):
+            other = prim.exchange_with(cur, 1 << j)
+            up = ((me >> (i + 1)) & 1) == 0
+            lower_half = ((me >> j) & 1) == 0
+            cur = _merge_split_tagged(cur, other, (up == lower_half)[:, None])
+    return cur
+
+
+def select_splitters(cfg: SortConfig, sorted_sample: Tagged, mode: str = "gather") -> Tagged:
+    """Fig. 1 step 6: the p-1 splitters, replicated (p, p-1).
+
+    ``gather``: positions i·s-1 of the replicated sorted sample.
+    ``bitonic``: splitter i is the last record of processor i-1's sorted
+    run, broadcast by one all_gather of one record per processor.
+    """
     p, s = cfg.p, cfg.s
-    pos = torch.arange(1, p, device=sorted_sample[0].device) * s - 1
-    return tuple(a[pos].unsqueeze(0).expand(p, p - 1).contiguous() for a in sorted_sample)
+    if mode == "gather":
+        pos = torch.arange(1, p, device=sorted_sample[0].device) * s - 1
+        picked = tuple(a[pos] for a in sorted_sample)
+    else:
+        picked = tuple(a[:-1, -1] for a in sorted_sample)
+    return tuple(a.unsqueeze(0).expand(p, p - 1).contiguous() for a in picked)
 
 
 def searchsorted_tagged(x_sorted: torch.Tensor, splitters: Tagged) -> torch.Tensor:
@@ -73,15 +134,20 @@ def searchsorted_tagged(x_sorted: torch.Tensor, splitters: Tagged) -> torch.Tens
     return torch.cat([zeros, lo, torch.full_like(zeros, n_p)], dim=1)
 
 
-def splitter_stage(x_sorted: torch.Tensor, cfg: SortConfig) -> Tagged:
-    """Ph3 for ``det``: regular sample, sample sort, splitter selection."""
-    if cfg.algorithm != "det":
-        raise NotImplementedError(
-            f"algorithm={cfg.algorithm!r} is not ported yet (see ROADMAP.md, queue 1)"
-        )
-    if cfg.sample_sort != "gather":
-        raise NotImplementedError(
-            "sample_sort='bitonic' is not ported yet (see ROADMAP.md, queue 1)"
-        )
-    sample = regular_sample(x_sorted, cfg)
-    return select_splitters(cfg, sample_sort_gather(sample))
+def splitter_stage(
+    x_sorted: torch.Tensor, cfg: SortConfig, positions: Optional[torch.Tensor] = None
+) -> Tagged:
+    """Full Ph3: sampling, sample sort and splitter selection.
+
+    ``det`` takes the regular sample; ``iran`` the keys at ``positions``
+    (p, s), a sample drawn anew for every ladder rung.
+    """
+    if cfg.algorithm == "det":
+        sample = regular_sample(x_sorted, cfg)
+    else:
+        if positions is None:
+            raise ValueError(f"algorithm={cfg.algorithm!r} needs sample positions")
+        sample = random_sample(x_sorted, positions)
+    if cfg.sample_sort == "gather":
+        return select_splitters(cfg, sample_sort_gather(sample), "gather")
+    return select_splitters(cfg, sample_sort_bitonic(sample, cfg.p), "bitonic")

@@ -75,6 +75,10 @@ class SortConfig:
       pairs). The names are the JAX package's.
     * ``routing`` — Ph5 schedule: ``a2a_dense`` or ``allgather``.
     * ``exchange`` — Ph5 payload packing: ``fused`` or ``per_array``.
+    * ``sample_sort`` — Ph3 sample sort: ``gather`` (one replicated
+      lexicographic sort) or ``bitonic`` (compare-split over processors).
+    * ``seed`` — seeds the randomized sorts' sample when the caller gives
+      no generator.
     """
 
     p: int

@@ -28,19 +28,23 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: dtype codes shared with the C entry points (``csrc/*.cu``).
-DTYPE_CODES = {torch.int32: 0, torch.float32: 1}
+#: key dtype codes shared with the C entry points (``csrc/*.cu``).
+DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.uint32: 2, torch.bfloat16: 3}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry point -> argument types; every entry returns a cudaError_t as int.
 SIGNATURES = {
     # in, out, rows, width, dtype, stream
     "repro_bitonic_sort_rows": [_P, _P, _I64, _I, _I, _P],
+    # keys in, values in, keys out, values out, rows, width, key dtype,
+    # value bytes, stream
+    "repro_bitonic_sort_kv_rows": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
     # data, n, queries, query procs|NULL, proc tag, query idxs|NULL,
-    # row procs|NULL, S, B, out, dtype, stream
-    "repro_splitter_ranks": [_P, _I64, _P, _P, _I, _P, _P, _I64, _I64, _P, _I, _P],
-    # a, b, out, rows, width, out_width, tile, dtype, stream
-    "repro_merge_path": [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
+    # row procs|NULL, S, B, row flags (B int32 scratch), out, dtype, stream
+    "repro_splitter_ranks": [_P, _I64, _P, _P, _I, _P, _P, _I64, _I64, _P, _P, _I, _P],
+    # a, b, out, diagonals (rows * spans int32 scratch), rows, width,
+    # out_width, tile, dtype, stream
+    "repro_merge_path": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -160,11 +164,12 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def dtype_code(t) -> int:
-    code = DTYPE_CODES.get(t.dtype)
-    if code is None:
-        raise TypeError(f"no kernel for dtype {t.dtype} (kernels take int32 and float32)")
-    return code
+def dtype_code(t, allowed=tuple(DTYPE_CODES)) -> int:
+    """The C code of a key tensor's dtype; raises for one the kernel lacks."""
+    if t.dtype not in allowed:
+        names = ", ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"no kernel for dtype {t.dtype} (this kernel takes {names})")
+    return DTYPE_CODES[t.dtype]
 
 
 def check_cuda(t, name: str) -> None:

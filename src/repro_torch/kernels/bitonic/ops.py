@@ -1,15 +1,24 @@
-"""Wrappers for the bitonic tile-sort kernel (K1, ``csrc/bitonic_sort.cu``).
+"""Wrappers for the bitonic tile sorts (``csrc/bitonic_sort.cu``).
 
-:func:`sort_tiles` is the one dispatch point: a CUDA tensor launches the
-kernel, a CPU tensor takes the plain version in ``ref.py``. :func:`sort`
-keeps the JAX package's wrapper logic around it: sentinel padding to a
-power of two ≥ 128, single tiles up to ``MAX_WIDTH``, and for wider rows
-``MAX_WIDTH`` tiles sorted by the kernel and combined by rank merges.
+K1 :func:`sort_tiles` and K4 :func:`sort_kv_tiles` are the dispatch
+points: a CUDA tensor launches the kernel (or raises), a CPU tensor takes
+the plain network in ``ref.py``. Keys are int32, uint32, float32 or
+bfloat16. Around them the JAX package's wrapper logic:
+
+* :func:`sort` — sentinel padding to a power of two ≥ 128, single tiles up
+  to ``MAX_WIDTH``, and for wider rows ``MAX_WIDTH`` tiles sorted by the
+  kernel and combined by rank merges;
+* :func:`sort_kv` — keys padded with the sentinel and values with 0, one
+  tile up to ``MAX_WIDTH``; wider rows take a stable argsort and a gather,
+  as the JAX wrapper does. The network is not stable: equal keys may come
+  out with their values in another order than they went in, as in the
+  JAX package.
 """
 from __future__ import annotations
 
 import torch
 
+from ...core.primitives import bias_unsigned, searchsorted, stable_sort, unbias_unsigned
 from ...core.types import sentinel_for
 from .. import _build
 from . import ref
@@ -17,9 +26,12 @@ from . import ref
 #: widest single-tile sort: one 16384-key row fills 64 KiB of shared memory.
 MAX_WIDTH = 16384
 MIN_WIDTH = 128
-_KERNEL_DTYPES = (torch.int32, torch.float32)
+_KERNEL_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.bfloat16)
+#: K4 moves values as opaque words of these sizes
+_VALUE_BYTES = (2, 4, 8)
 
 LAUNCHES = _build.counter("bitonic_sort_tiles")
+KV_LAUNCHES = _build.counter("bitonic_sort_kv_tiles")
 
 
 def _pow2_at_least(n: int, floor: int = MIN_WIDTH) -> int:
@@ -33,23 +45,55 @@ def supports(x: torch.Tensor) -> bool:
     return x.ndim in (1, 2) and x.dtype in _KERNEL_DTYPES
 
 
-def sort_tiles(x: torch.Tensor) -> torch.Tensor:
-    """Sort every row of (rows, width); width a power of two in [128, 16384]."""
-    rows, width = x.shape
+def _check_tile(x: torch.Tensor) -> None:
+    width = x.shape[1]
     if width & (width - 1) or not MIN_WIDTH <= width <= MAX_WIDTH:
         raise ValueError(f"tile width must be a power of two in [128, 16384], got {width}")
+
+
+def sort_tiles(x: torch.Tensor) -> torch.Tensor:
+    """Sort every row of (rows, width); width a power of two in [128, 16384]."""
+    _check_tile(x)
     if x.device.type == "cpu":
         return ref.sort_tiles(x)
     _build.check_cuda(x, "x")
-    code = _build.dtype_code(x)
+    code = _build.dtype_code(x, _KERNEL_DTYPES)
     lib = _build.load()
     out = torch.empty_like(x)
     rc = lib.repro_bitonic_sort_rows(
-        x.data_ptr(), out.data_ptr(), rows, width, code, _build.stream_handle()
+        x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], code, _build.stream_handle()
     )
     _build.check_launch(lib, rc, "bitonic_sort_tiles")
     LAUNCHES.n += 1
     return out
+
+
+def sort_kv_tiles(keys: torch.Tensor, vals: torch.Tensor):
+    """K1's network on every key row of (rows, width), values swapped alongside."""
+    _check_tile(keys)
+    if vals.shape != keys.shape:
+        raise ValueError(f"values {tuple(vals.shape)} must have the keys' shape {tuple(keys.shape)}")
+    if keys.device.type == "cpu":
+        return ref.sort_kv_tiles(keys, vals)
+    _build.check_cuda(keys, "keys")
+    _build.check_cuda(vals, "values")
+    code = _build.dtype_code(keys, _KERNEL_DTYPES)
+    vbytes = vals.element_size()
+    if vbytes not in _VALUE_BYTES:
+        raise TypeError(f"no kernel for {vals.dtype} values (it moves 2-, 4- or 8-byte words)")
+    lib = _build.load()
+    ko, vo = torch.empty_like(keys), torch.empty_like(vals)
+    rc = lib.repro_bitonic_sort_kv_rows(
+        keys.data_ptr(), vals.data_ptr(), ko.data_ptr(), vo.data_ptr(), keys.shape[0],
+        keys.shape[1], code, vbytes, _build.stream_handle(),
+    )
+    _build.check_launch(lib, rc, "bitonic_sort_kv_tiles")
+    KV_LAUNCHES.n += 1
+    return ko, vo
+
+
+def _pad(x: torch.Tensor, width: int, value) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, width - x.shape[1]), value=value).contiguous()
 
 
 def sort(x: torch.Tensor) -> torch.Tensor:
@@ -60,21 +104,21 @@ def sort(x: torch.Tensor) -> torch.Tensor:
     rows, n = x.shape
     sent = sentinel_for(x.dtype)
     if n <= MAX_WIDTH:
-        w = _pow2_at_least(n)
-        xp = torch.nn.functional.pad(x, (0, w - n), value=sent)
-        out = sort_tiles(xp.contiguous())[:, :n]
+        out = sort_tiles(_pad(x, _pow2_at_least(n), sent))[:, :n]
         return out[0] if squeeze else out
 
     # multi-tile: sort MAX_WIDTH tiles in the kernel, then merge pairs.
     w = _pow2_at_least(n, MAX_WIDTH)
-    xp = torch.nn.functional.pad(x, (0, w - n), value=sent)
     t = w // MAX_WIDTH
-    tiles = sort_tiles(xp.reshape(rows * t, MAX_WIDTH).contiguous()).reshape(
-        rows, t, MAX_WIDTH
-    )
+    tiles = sort_tiles(_pad(x, w, sent).reshape(rows * t, MAX_WIDTH)).reshape(rows, t, MAX_WIDTH)
+    unsigned = tiles.dtype == torch.uint32
+    if unsigned:  # no uint32 searchsorted/scatter: merge the order-keeping bias
+        tiles = bias_unsigned(tiles)
     while tiles.shape[1] > 1:
         tiles = _rank_merge(tiles[:, 0::2], tiles[:, 1::2])
     out = tiles[:, 0, :n]
+    if unsigned:
+        out = unbias_unsigned(out)
     return out[0] if squeeze else out
 
 
@@ -83,10 +127,34 @@ def _rank_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     *lead, m = a.shape
     fa = a.reshape(-1, m).contiguous()
     fb = b.reshape(-1, m).contiguous()
+    exact = a.is_floating_point()  # NaN tiles leave the network unsorted
     i = torch.arange(m, device=a.device)
-    pos_a = i + torch.searchsorted(fb, fa)
-    pos_b = i + torch.searchsorted(fa, fb, right=True)
+    pos_a = i + searchsorted(fb, fa, "left", exact).long()
+    pos_b = i + searchsorted(fa, fb, "right", exact).long()
     out = torch.empty((fa.shape[0], 2 * m), dtype=a.dtype, device=a.device)
     out.scatter_(1, pos_a, fa)
     out.scatter_(1, pos_b, fb)
     return out.reshape(*lead, 2 * m)
+
+
+def _gather(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``t.gather(-1, order)`` for any dtype (uint32 by its int32 view)."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32).gather(-1, order).view(torch.uint32)
+    return t.gather(-1, order)
+
+
+def sort_kv(keys: torch.Tensor, vals: torch.Tensor):
+    """Key-value sort along the last axis of 1-D or 2-D (keys, values)."""
+    squeeze = keys.ndim == 1
+    if squeeze:
+        keys, vals = keys[None, :], vals[None, :]
+    rows, n = keys.shape
+    if n > MAX_WIDTH:
+        order = stable_sort(bias_unsigned(keys) if keys.dtype == torch.uint32 else keys)[1]
+        ko, vo = _gather(keys, order), _gather(vals, order)
+    else:
+        w = _pow2_at_least(n)
+        ko, vo = sort_kv_tiles(_pad(keys, w, sentinel_for(keys.dtype)), _pad(vals, w, 0))
+        ko, vo = ko[:, :n], vo[:, :n]
+    return (ko[0], vo[0]) if squeeze else (ko, vo)

@@ -4,8 +4,10 @@
   ``TILE``-wide output spans, used by the Ph6 rank-merge tail for key-only
   pairs under ``merge_backend="pallas"``. A CUDA tensor launches the kernel,
   which finds each span's diagonal itself; a CPU tensor takes the window
-  sort in ``ref.py``. ``width`` produces only the first output columns (the
-  merge tree clips every round to the receive bound).
+  merge in ``ref.py``. ``width`` produces only the first output columns (the
+  merge tree clips every round to the receive bound). Keys are int32,
+  float32 or bfloat16; the bytes equal the JAX package's, ties of
+  ``-0.0``/``+0.0`` and NaNs included.
 * :func:`merge` — whole-row merge of rows of any two widths: both sides are
   padded with the sentinel to one power-of-two width ≥ 128 and merged.
 """
@@ -21,6 +23,8 @@ from . import ref
 
 #: output span per merge-path CTA (power of two ≤ 1024).
 TILE = 1024
+
+_KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
 
 LAUNCHES = _build.counter("merge_sorted_tiles")
 
@@ -44,12 +48,15 @@ def merge_partitioned(a: torch.Tensor, b: torch.Tensor, width: Optional[int] = N
         return ref.merge_windows(a.contiguous(), b.contiguous(), tile, out_w)
     _build.check_cuda(a, "a")
     _build.check_cuda(b, "b")
-    code = _build.dtype_code(a)
+    code = _build.dtype_code(a, _KERNEL_DTYPES)
     lib = _build.load()
     out = torch.empty((rows, out_w), dtype=a.dtype, device=a.device)
+    # float keys: the spans' diagonals are solved by a first kernel into this
+    diag = torch.empty((rows * -(-out_w // tile),) if a.is_floating_point() else (0,),
+                       dtype=torch.int32, device=a.device)
     rc = lib.repro_merge_path(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, W, out_w, tile, code,
-        _build.stream_handle(),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), diag.data_ptr(), rows, W, out_w, tile,
+        code, _build.stream_handle(),
     )
     _build.check_launch(lib, rc, "merge_sorted_tiles")
     LAUNCHES.n += 1

@@ -13,7 +13,10 @@ package's are vmapped):
 
 :func:`_ranks` is the one dispatch point: a CUDA tensor launches the
 kernel, a CPU tensor takes the plain version in ``ref.py``. Both results
-are clamped to n, as the JAX package's wrappers clamp theirs.
+are clamped to n, as the JAX package's wrappers clamp theirs. Keys are
+int32, float32 or bfloat16. The JAX kernel's answer is a masked count;
+the CUDA kernel binary-searches each row whose order makes that count a
+prefix (sorted, NaNs last) and counts the others element by element.
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ import torch
 
 from .. import _build
 from . import ref
+
+_KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
 
 LAUNCHES = _build.counter("splitter_ranks")
 
@@ -46,12 +51,13 @@ def _ranks(x, qkey, qproc, proc_tag: int, qidx, me) -> torch.Tensor:
             if t.dtype != torch.int32 or tuple(t.shape) != shape:
                 raise ValueError(f"{name} must be int32 of shape {shape}")
         tags.append(None if t is None else t.data_ptr())
-    code = _build.dtype_code(x)
+    code = _build.dtype_code(x, _KERNEL_DTYPES)
     lib = _build.load()
     out = torch.empty((B, S), dtype=torch.int32, device=x.device)
+    row_ok = torch.empty((B,), dtype=torch.int32, device=x.device)
     rc = lib.repro_splitter_ranks(
         x.data_ptr(), n, qkey.data_ptr(), tags[0], proc_tag, tags[1], tags[2],
-        S, B, out.data_ptr(), code, _build.stream_handle(),
+        S, B, row_ok.data_ptr(), out.data_ptr(), code, _build.stream_handle(),
     )
     _build.check_launch(lib, rc, "splitter_ranks")
     LAUNCHES.n += 1

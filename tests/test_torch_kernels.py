@@ -1,10 +1,12 @@
-"""The K1, K2 and K3 wrappers against the JAX package's kernel ops.
+"""The K1–K4 wrappers against the JAX package's kernel ops.
 
 On the CPU every wrapper takes its kernel's plain version, so these tests
 hold the padding, tiling, clamping and window logic around each kernel,
 and the plain version itself, against the Pallas kernels run in interpret
 mode. The cases are those of ``tests/test_kernels_fast.py`` plus a
-multi-tile K1 row. The kernels themselves run only on the card
+multi-tile K1 row, K1's uint32 and bfloat16 keys, the key-value sort K4,
+and keys whose ties differ in their bits (the networks are not stable).
+Tolerance: exact bytes. The kernels themselves run only on the card
 (``test_kernels_match_plain_on_card``).
 """
 from __future__ import annotations
@@ -51,13 +53,120 @@ def test_bitonic_sort_multi_tile_row():
     assert_same(np.sort(x, axis=-1), got, "multi-tile")
 
 
+#: every key dtype at the narrow widths and past one tile; the wide tiles
+#: (slow in interpret mode) for one integer and one float dtype
+KV_CASES = [
+    (kind, shape)
+    for kind in ("int32", "uint32", "float32", "bfloat16")
+    for shape in ((1, 17), (5, 100), (1, 16384 + 300))
+] + [(kind, shape) for kind in ("int32", "float32") for shape in ((3, 4096), (2, 16384))]
+
+
+def _keys(kind: str, shape, seed: int) -> np.ndarray:
+    """Keys with heavy ties: int32, uint32 (above 2³¹ too), float32 with
+    ±0.0, or bfloat16."""
+    rng = np.random.default_rng(seed)
+    if kind == "int32":
+        return rng.integers(0, 50, shape).astype(np.int32)
+    if kind == "uint32":
+        return (rng.integers(0, 40, shape).astype(np.uint32) * np.uint32(100_000_000))
+    if kind == "float32":
+        return np.asarray([-0.0, 0.0, 1.5, -2.0], np.float32)[rng.integers(0, 4, shape)]
+    import ml_dtypes
+
+    return rng.integers(-8, 8, shape).astype(np.float32).astype(ml_dtypes.bfloat16)
+
+
+def _torch(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32).copy()).view(torch.uint32)
+    return torch.from_numpy(a.copy())
+
+
+def _bytes_equal(ref, got: torch.Tensor, what: str) -> None:
+    r = np.asarray(ref)
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[got.element_size()]
+    t = got.contiguous().view(bits).numpy()
+    assert r.shape == t.shape, f"{what}: shape {t.shape} != {r.shape}"
+    assert r.tobytes() == t.tobytes(), f"{what}: bytes differ"
+
+
+@pytest.mark.parametrize("kind", ["uint32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 17), (5, 100), (2, 4096)])
+def test_bitonic_sort_new_dtypes_match_reference(kind, shape):
+    import jax.numpy as jnp
+
+    x = _keys(kind, shape, 8)
+    want = _ref_ops("bitonic").sort(jnp.asarray(x))
+    got = bops.sort(_torch(x))
+    assert got.dtype == _torch(x).dtype
+    _bytes_equal(want, got, f"sort {kind}")
+
+
+def test_bitonic_sort_multi_tile_uint32():
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 2**32, (1, bops.MAX_WIDTH + 77), dtype=np.uint64).astype(np.uint32)
+    _bytes_equal(np.sort(x, axis=-1), bops.sort(_torch(x)), "multi-tile uint32")
+
+
+@pytest.mark.parametrize("kind,shape", KV_CASES)
+def test_sort_kv_matches_reference(kind, shape):
+    """Keys and values, ties and ±0.0 included, in the network's own order."""
+    import jax.numpy as jnp
+
+    keys = _keys(kind, shape, 9)
+    vals = np.arange(np.prod(shape), dtype=np.int32).reshape(shape)
+    rk, rv = _ref_ops("bitonic").sort_kv(jnp.asarray(keys), jnp.asarray(vals))
+    gk, gv = bops.sort_kv(_torch(keys), torch.from_numpy(vals))
+    _bytes_equal(rk, gk, "keys")
+    _bytes_equal(rv, gv, "values")
+    if shape[1] > 100:
+        return
+    rk1, rv1 = _ref_ops("bitonic").sort_kv(jnp.asarray(keys[0]), jnp.asarray(vals[0]))
+    gk1, gv1 = bops.sort_kv(_torch(keys[0]), torch.from_numpy(vals[0]))
+    _bytes_equal(rk1, gk1, "keys 1-D")
+    _bytes_equal(rv1, gv1, "values 1-D")
+
+
+def test_sort_kv_moves_values_of_other_widths():
+    """int64 and float16 values ride the same swaps as int32 ones."""
+    keys = torch.from_numpy(_keys("int32", (3, 300), 10))
+    idx = torch.arange(900, dtype=torch.int32).reshape(3, 300)
+    k32, v32 = bops.sort_kv(keys, idx)
+    k64, v64 = bops.sort_kv(keys, idx.long())
+    k16, v16 = bops.sort_kv(keys, idx.to(torch.float16))
+    assert torch.equal(k32, k64) and torch.equal(k32, k16)
+    assert torch.equal(v64, v32.long()) and torch.equal(v16, v32.to(torch.float16))
+
+
+@pytest.mark.parametrize("keyset", ["signed_zeros", "nans"])
+def test_merge_partitioned_float_ties_match_reference(keyset):
+    """The merge network's order of -0.0/+0.0, and its NaN placement."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(12)
+    choice = {"signed_zeros": [-0.0, 0.0, 3.0], "nans": [np.nan, 1.0, -1.0]}[keyset]
+    a = np.asarray(choice, np.float32)[rng.integers(0, 3, (3, 1500))]
+    b = np.asarray(choice, np.float32)[rng.integers(0, 3, (3, 1500))]
+    if keyset == "signed_zeros":
+        a, b = np.sort(a, axis=-1), np.sort(b, axis=-1)
+    want = _ref_ops("merge_path").merge_partitioned(jnp.asarray(a), jnp.asarray(b))
+    _bytes_equal(want, mops.merge_partitioned(torch.from_numpy(a), torch.from_numpy(b)), keyset)
+
+
 def test_bitonic_sort_rejects_bad_tiles():
     with pytest.raises(ValueError):
         bops.sort_tiles(torch.zeros((2, 96), dtype=torch.int32))
     with pytest.raises(ValueError):
         bops.sort_tiles(torch.zeros((2, 2 * bops.MAX_WIDTH), dtype=torch.int32))
     assert bops.supports(torch.zeros(4, dtype=torch.float32))
+    assert bops.supports(torch.zeros(4, dtype=torch.uint32))
+    assert bops.supports(torch.zeros(4, dtype=torch.bfloat16))
     assert not bops.supports(torch.zeros(4, dtype=torch.int64))
+    with pytest.raises(ValueError):
+        bops.sort_kv_tiles(torch.zeros((2, 128), dtype=torch.int32), torch.zeros((2, 64)))
 
 
 @pytest.mark.parametrize("na,nb", [(33, 77), (128, 128), (1, 64)])
@@ -135,16 +244,36 @@ def test_rank_in_rejects_bad_side():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """Each CUDA kernel equals its plain version exactly (needs the card)."""
+    """Each CUDA kernel equals its plain version bit for bit (needs the card)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+
+    def same(a, b):
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
+
     g = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (torch.int32, torch.float32):
+    _build.reset_counts()
+    for dtype in (torch.int32, torch.float32, torch.bfloat16):
         x = torch.randint(-(2**30), 2**30, (16, 16384), device="cuda", generator=g).to(dtype)
-        assert torch.equal(bops.sort_tiles(x), bref.sort_tiles(x))
+        x[0, :64] = -0.0 if dtype != torch.int32 else 0
+        assert same(bops.sort_tiles(x), bref.sort_tiles(x))
         xm = torch.randint(0, 2**20, (4, 65536), device="cuda", generator=g).to(dtype)
-        assert torch.equal(bops.sort(xm), torch.sort(xm, dim=-1).values)
+        assert same(bops.sort(xm), torch.sort(xm, dim=-1).values)
+    xu = torch.randint(0, 2**31, (16, 4096), device="cuda", generator=g).to(torch.int32)
+    xu = xu.view(torch.uint32)
+    assert same(bops.sort_tiles(xu), bref.sort_tiles(xu))
+    keys = torch.randint(0, 50, (8, 16384), device="cuda", generator=g).int()
+    for vals in (torch.arange(8 * 16384, device="cuda").reshape(8, 16384),
+                 torch.arange(8 * 16384, device="cuda", dtype=torch.int32).reshape(8, 16384),
+                 torch.ones((8, 16384), device="cuda", dtype=torch.float16)):
+        k, v = bops.sort_kv_tiles(keys, vals)
+        rk, rv = bref.sort_kv_tiles(keys, vals)
+        assert same(k, rk) and same(v, rv)
+    with pytest.raises(TypeError):
+        bops.sort_kv_tiles(keys, torch.zeros((8, 16384), device="cuda", dtype=torch.uint8))
     data = torch.sort(torch.randint(0, 500, (8, 1256), device="cuda", generator=g).int(), dim=-1).values
+    data[1] = data[1].flip(0)  # a row out of order: the masked count
     q = torch.randint(-5, 505, (8, 2512), device="cuda", generator=g).int()
     q[:, :4] = torch.iinfo(torch.int32).max
     for side in ("left", "right"):
@@ -158,4 +287,12 @@ def test_kernels_match_plain_on_card():
         b[:, w // 2 :] = torch.iinfo(torch.int32).max
         tile = min(mops.TILE, mops._pow2_at_least(w))
         assert torch.equal(mops.merge_partitioned(a, b), mref.merge_windows(a, b, tile, 2 * w))
-    assert _build.counts()["bitonic_sort_tiles"] > 0
+        choice = torch.tensor([-0.0, 0.0, float("nan"), 1.0], device="cuda")
+        fa = choice[torch.randint(0, 4, (8, w), device="cuda", generator=g)]
+        fb = choice[torch.randint(0, 4, (8, w), device="cuda", generator=g)]
+        for dt in (torch.float32, torch.bfloat16):
+            ga, gb = fa.to(dt), fb.to(dt)
+            assert same(mops.merge_partitioned(ga, gb), mref.merge_windows(ga, gb, tile, 2 * w))
+    counts = _build.counts()
+    for name in ("bitonic_sort_tiles", "bitonic_sort_kv_tiles", "splitter_ranks", "merge_sorted_tiles"):
+        assert counts[name] > 0, name
