@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py        # from the repository root, on a machine with the card
+    python3 chip_smoke.py    # from the repository root, on a machine with the card
 
 Phases, each printing one JSON line; any failure ends the run nonzero:
 
@@ -14,8 +14,11 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      merge-path merge, also on float windows with ±0.0 and
                      NaN, K4 key-value tile sort) against its plain PyTorch
                      version at the paths' shapes: bit for bit equal.
-                     Times by CUDA events (warmed, median of repeats) beside
-                     the kernel's bound and one PyTorch library call.
+                     Times by CUDA events (warmed, median of repeats) and
+                     profiler device time, beside the kernel's bound, its
+                     plain version's time (on every row, or on the
+                     ``plain_rows`` a row names; never scaled) and one
+                     PyTorch library call.
 4. ``small_parity``— whole sorts on the card against the plain path on the
                      CPU at p=8, n_per_proc=512, byte-identical: det, iran,
                      ran, [BSI], the bitonic sample sort, float keys with
@@ -36,8 +39,9 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 8. ``sort_kv_path``— the key-value tile sort ``kernels.bitonic.ops.sort_kv``
                      as a caller would use it, rows of 16384: K4 must launch.
 9. ``profile``     — per full-width run: prepare and per-rung route times by
-                     CUDA events; the device's busy share and its top
-                     operations under ``torch.profiler``.
+                     CUDA events, the median wall of five warm sorts; the
+                     device's busy share and its top operations under
+                     ``torch.profiler``.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
@@ -106,14 +110,6 @@ def time_ms(torch, fn, target_ms: float = 300.0, max_reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def library_time(torch, fn):
-    """``time_ms`` of a library call, or None where PyTorch lacks it for the dtype."""
-    try:
-        return time_ms(torch, fn)
-    except (NotImplementedError, RuntimeError):
-        return None
-
-
 def bound(bytes_moved: float, ops: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
@@ -146,6 +142,68 @@ def sorted_rows(torch, rows, width, dtype, gen, sentinel_tails):
     return x.contiguous()
 
 
+def path_runs(torch, rows, width, gen, mean=512):
+    """Sorted int32 (rows, width) runs as the merge tree's first round gets
+    them at full width: about n_per_proc / p = 512 valid keys a run, then
+    the sentinel. Returns (runs, valid counts)."""
+    counts = torch.randint(mean - 64, mean + 65, (rows,), device="cuda", generator=gen).int()
+    x = torch.randint(0, 2**31 - 1, (rows, width), device="cuda", generator=gen).int()
+    x = torch.where(torch.arange(width, device="cuda") < counts[:, None], x, torch.iinfo(torch.int32).max)
+    return torch.sort(x, dim=-1).values.contiguous(), counts
+
+
+def device_split(torch, prof, reps: int = 1) -> dict:
+    """{op: (device ms per rep, calls)} of a profiler run: device-side events
+    only, since a host op repeats its kernels' time."""
+    split = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            split[ev.key] = (us / 1e3 / reps, ev.count)
+    return split
+
+
+def timed(torch, fn, reps: int = 10, **kw) -> dict:
+    """CUDA-event ms of ``fn`` (wrapper, allocations and launches included)
+    beside its device-only ms under ``torch.profiler``, the split of that by
+    kernel, and the host's ms per call (the wrapper's Python and launches,
+    timed without waiting for the device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(torch, fn, **kw)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {k[:60]: v[0] for k, v in device_split(torch, prof, reps).items()}
+    return dict(ms=ms, device_ms=sum(split.values()), host_ms=host_ms, device_split=split)
+
+
+def library_timed(torch, fn) -> dict:
+    """``timed`` of a library call, or Nones where PyTorch lacks it for the dtype."""
+    try:
+        return timed(torch, fn)
+    except (NotImplementedError, RuntimeError):
+        return dict(ms=None, device_ms=None, host_ms=None, device_split={})
+
+
+def rank_in_plain(torch, sref, data, q, side, rows):
+    """K2's plain version on the first ``rows`` rows, as ``rank_in`` calls it."""
+    qq = q[:rows]
+    tag = torch.full(qq.shape, 1 if side == "right" else -1, dtype=torch.int32, device="cuda")
+    zeros = torch.zeros(qq.shape, dtype=torch.int32, device="cuda")
+    return sref.ranks(data[:rows], qq, tag, zeros, torch.zeros(rows, dtype=torch.int32, device="cuda"))
+
+
 # ------------------------------------------------------------------ phases
 def phase_kernels(torch, mods):
     bops, bref, sops, sref, mops, mref = mods
@@ -171,11 +229,11 @@ def phase_kernels(torch, mods):
         errs.append(max_abs_err(torch, bops.sort_tiles(x), bref.sort_tiles(x), "kernels", f"K1 {dtype}"))
         rows, w = x.shape
         lg = int(math.log2(w))
-        ms = time_ms(torch, lambda: bops.sort_tiles(x))
+        k = timed(torch, lambda: bops.sort_tiles(x))
         b_ms, b_by = bound(2 * x.numel() * x.element_size(), rows * (w // 2) * lg * (lg + 1) // 2)
-        d = dict(kernel="K1", dtype=str(dtype), shape=[rows, w], ms=ms, bound_ms=b_ms,
+        d = dict(kernel="K1", dtype=str(dtype), shape=[rows, w], **k, bound_ms=b_ms,
                  plain_ms=time_ms(torch, lambda: bref.sort_tiles(x)),
-                 library_ms=library_time(torch, lambda: torch.sort(x, dim=-1)))
+                 library_ms=library_timed(torch, lambda: torch.sort(x, dim=-1))["ms"])
         if dtype in (torch.int32, torch.float32):
             xm = torch.randint(-(2**30), 2**30, (128, 65536), device="cuda", generator=gen).to(dtype)
             errs.append(max_abs_err(torch, bops.sort(xm), torch.sort(xm, dim=-1).values, "kernels",
@@ -183,7 +241,7 @@ def phase_kernels(torch, mods):
             d.update(multi_tile_ms=time_ms(torch, lambda: bops.sort(xm)), multi_tile_shape=list(xm.shape))
         details.append(d)
         if dtype == torch.int32:
-            entries["K1"] = dict(ms=ms, plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            entries["K1"] = dict(ms=k["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                                  library_ms=d["library_ms"])
     entries["K1"]["max_abs_err"] = max(errs)
 
@@ -201,96 +259,191 @@ def phase_kernels(torch, mods):
         errs.append(max_abs_err(torch, gv, pv, "kernels", f"K4 values {kind}"))
         rows, w = keys.shape
         lg = int(math.log2(w))
-        ms = time_ms(torch, lambda: bops.sort_kv_tiles(keys, vals))
+        k = timed(torch, lambda: bops.sort_kv_tiles(keys, vals))
         b_ms, b_by = bound(2 * keys.numel() * 8, rows * (w // 2) * lg * (lg + 1) // 2)
 
         def library():  # two calls: a stable sort of the keys, then a gather
             order = torch.sort(keys, dim=-1, stable=True)
             return order.values, vals.gather(-1, order.indices)
 
-        d = dict(kernel="K4", keys=kind, values="int32", shape=[rows, w], ms=ms, bound_ms=b_ms,
+        d = dict(kernel="K4", keys=kind, values="int32", shape=[rows, w], **k, bound_ms=b_ms,
                  plain_ms=time_ms(torch, lambda: bref.sort_kv_tiles(keys, vals)),
-                 library_ms=time_ms(torch, library), library="torch.sort + gather (two calls)")
+                 library_ms=library_timed(torch, library)["ms"], library="torch.sort + gather (two calls)")
         details.append(d)
         if kind == "int32":
-            entries["K4"] = dict(ms=ms, plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            entries["K4"] = dict(ms=k["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                                  library_ms=d["library_ms"])
     entries["K4"]["max_abs_err"] = max(errs)
 
-    # K2 — rank-merge ranks: round 1 (8192 rows of 1256) and the last round
-    # (rows of 79008); both sides; sentinel-valued queries and tails
-    errs = []
-    for rows, n, s, plain_rows in ((8192, 1256, 2512, 8192), (128, 79008, 79008, 8)):
-        data = sorted_rows(torch, rows, n, torch.int32, gen, True)
-        q = torch.randint(0, 2**30, (rows, s), device="cuda", generator=gen).int()
-        q[:, :8] = int_max
-        for side in ("left", "right"):
-            got = sops.rank_in(data, q, side=side)
-            dp, qp = data[:plain_rows].contiguous(), q[:plain_rows].contiguous()
-            tag = torch.full_like(qp, 1 if side == "right" else -1)
-            zeros_q = torch.zeros_like(qp)
-            me = torch.zeros(plain_rows, dtype=torch.int32, device="cuda")
-            want = sref.ranks(dp, qp, tag, zeros_q, me)
-            errs.append(max_abs_err(torch, got[:plain_rows], want, "kernels", f"K2 {rows}x{n} {side}"))
-            lib = torch.searchsorted(data, q, side=side, out_int32=True)
-            if not torch.equal(lib, got):
-                fail("kernels", f"K2 {rows}x{n} {side}: differs from torch.searchsorted")
-        ms = time_ms(torch, lambda: sops.rank_in(data, q, side="right"))
-        b_ms, b_by = bound((data.numel() + 2 * q.numel()) * 4,
-                           q.numel() * math.ceil(math.log2(n + 1)))
-        d = dict(kernel="K2", shape=[rows, n], queries=s, ms=ms, bound_ms=b_ms,
-                 plain_rows=plain_rows,
-                 plain_ms=time_ms(torch, lambda: sref.ranks(dp, qp, tag, zeros_q, me), target_ms=1),
-                 library_ms=time_ms(torch, lambda: torch.searchsorted(data, q, side="right", out_int32=True)))
-        details.append(d)
-        if n == 1256:
-            entries["K2"] = dict(ms=ms, plain_ms=d["plain_ms"] * rows / plain_rows,
-                                 bound_ms=b_ms, bound_by=b_by, library_ms=d["library_ms"])
-    entries["K2"]["max_abs_err"] = max(errs)
+    entries["K2"] = kernels_k2(torch, sops, sref, gen, details)
+    entries["K3"] = kernels_k3(torch, mops, mref, gen, details)
+    emit({"phase": "kernels", "ok": True, "details": details})
+    return entries
 
-    # K3 — key-only merge rounds: whp rounds 1-2, exact round 1 (clipped to n_max)
+
+def kernels_k2(torch, sops, sref, gen, details):
+    """K2 at the rank merge's two round-1 calls (``core/merge._rank_merge_two``)
+    and on every route: sorted queries (one merge per row), unsorted queries
+    (a search per query), runs out of order (the masked count), float keys
+    with ±0.0 and NaN, tagged splitters, rows of 79 008."""
+    int_max = torch.iinfo(torch.int32).max
     errs = []
-    for rows, w, out_w, plain_rows in ((8192, 1256, 2512, 8192), (4096, 2512, 5024, 4096),
-                                       (8192, 65536, 79008, 64)):
+
+    def check(got, data, q, side, rows, what):
+        errs.append(max_abs_err(torch, got[:rows], rank_in_plain(torch, sref, data, q, side, rows),
+                                "kernels", f"K2 {what} {side}"))
+
+    def measure(what, data, q, side, plain_rows, merge):
+        """Times one call; the bound counts one merge per row (sorted queries)
+        or one binary search per query, and a broadcast query row once."""
+        B, n = data.shape
+        S = q.shape[1]
+        q_words = S if q.stride(0) == 0 else B * S
+        ops = B * (n + S) if merge else B * S * math.ceil(math.log2(n + 1))
+        b_ms, b_by = bound((B * n + q_words + B * S) * 4, ops)
+        qc = q.contiguous()  # the library call's best case: queries in place
+        lib = library_timed(torch, lambda: torch.searchsorted(data, qc, side=side, out_int32=True))
+        plain = time_ms(torch, lambda: rank_in_plain(torch, sref, data, q, side, plain_rows), target_ms=1)
+        d = dict(kernel="K2", call=what, side=side, shape=[B, n], queries=S,
+                 query_row_stride=q.stride(0), **timed(torch, lambda: sops.rank_in(data, q, side=side)),
+                 bound_ms=b_ms, bound_by=b_by, plain_ms=plain, plain_rows=plain_rows,
+                 library_ms=lib["ms"], library_device_ms=lib["device_ms"],
+                 library_split=lib["device_split"])
+        details.append(d)
+        return d
+
+    # the main path's round 1: 8192 pairs of runs of 1256 (pair_cap) with
+    # ~512 valid keys; call 1 ranks ka in kb, call 2 the output slots
+    # arange(2w), one row broadcast over the rows, in the rank positions pos_a
+    rows, w = 8192, 1256
+    ka, ca = path_runs(torch, rows, w, gen)
+    kb, cb = path_runs(torch, rows, w, gen)
+    ra = torch.minimum(sops.rank_in(kb, ka, side="left"), cb[:, None])
+    ia = torch.arange(w, dtype=torch.int32, device="cuda")
+    pos_a = torch.where(ia < ca[:, None], ia + ra, 2 * w + ia).contiguous()
+    o = torch.arange(2 * w, dtype=torch.int32, device="cuda").expand(rows, 2 * w)
+    calls = (("call 1: ka in kb", kb, ka, "left"), ("call 2: arange(2w) in pos_a, broadcast", pos_a, o, "right"))
+    summary = None
+    for what, data, q, side in calls:
+        got = sops.rank_in(data, q, side=side)
+        check(got, data, q, side, 2048, what)
+        if not torch.equal(got, torch.searchsorted(data, q.contiguous(), side=side, out_int32=True)):
+            fail("kernels", f"K2 {what}: differs from torch.searchsorted")
+        summary = measure(what, data, q, side, rows, merge=True)  # plain on every row
+    # random (unsorted) queries at the round-1 shape; rows of 79 008 (the
+    # last round) with sorted and with random queries
+    for rows, n, s, plain_rows in ((8192, 1256, 2512, 2048), (128, 79008, 79008, 4)):
+        data = sorted_rows(torch, rows, n, torch.int32, gen, True)
+        q_rand = torch.randint(0, 2**30, (rows, s), device="cuda", generator=gen).int()
+        q_rand[:, :8] = int_max
+        q_sorted = sorted_rows(torch, rows, s, torch.int32, gen, True)
+        for kind, q in (("random queries", q_rand), ("sorted queries", q_sorted)):
+            for side in ("left", "right"):
+                got = sops.rank_in(data, q, side=side)
+                check(got, data, q, side, plain_rows, f"{rows}x{n} {kind}")
+                if not torch.equal(got, torch.searchsorted(data, q, side=side, out_int32=True)):
+                    fail("kernels", f"K2 {rows}x{n} {kind} {side}: differs from torch.searchsorted")
+            if kind == "random queries" or n > 1256:
+                measure(f"{rows}x{n} {kind}", data, q, "right", plain_rows, merge=kind == "sorted queries")
+    # float keys: ±0.0 ties; rows 0-3 out of order (a NaN inside: the masked
+    # count), rows 4-7 with NaN tails (in order); queries sorted, then with
+    # NaN keys (out of order: a search per query); rows of one tile, and
+    # rows of several (n + S > 4096)
+    choice = torch.tensor([-0.0, 0.0, 1.0, -1.0, 2.5, float("inf")], device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        for rows, n, s in ((64, 1256, 2512), (8, 5000, 3000)):
+            data = torch.sort(choice[torch.randint(0, 6, (rows, n), device="cuda", generator=gen)], dim=-1).values
+            data[:4, n // 2] = float("nan")
+            data[4:8, -40:] = float("nan")
+            q = torch.sort(choice[torch.randint(0, 6, (rows, s), device="cuda", generator=gen)], dim=-1).values
+            q_nan = q.clone()
+            q_nan[:, -5:] = float("nan")
+            for kind, qq in (("sorted", q), ("NaN", q_nan)):
+                for side in ("left", "right"):  # the kernel alone: rank_in adds the JAX pads to it
+                    dd, qd = data.to(dtype).contiguous(), qq.to(dtype).contiguous()
+                    got = sops._ranks(dd, qd, None, 1 if side == "right" else -1, None, None)
+                    check(got, dd, qd, side, rows, f"{dtype} {rows}x{n} {kind} queries")
+    # tagged splitters (key, proc, idx) with ties on the key, sorted
+    # lexicographically per row (one merge) and as drawn (a search each)
+    B, n, S = 1024, 1256, 640
+    x = torch.sort(torch.randint(0, 500, (B, n), device="cuda", generator=gen).int(), dim=-1).values
+    keys = x.gather(1, torch.randint(0, n, (B, S), device="cuda", generator=gen))
+    procs = torch.randint(0, 128, (B, S), device="cuda", generator=gen).int()
+    idx = torch.randint(0, n, (B, S), device="cuda", generator=gen).int()
+    me = torch.randint(0, 128, (B,), device="cuda", generator=gen).int()
+    order = torch.argsort((keys.long() << 32) | (procs.long() << 16) | idx.long(), dim=-1)
+    for kind, (k, p, i) in (("sorted", [t.gather(1, order) for t in (keys, procs, idx)]),
+                            ("as drawn", (keys, procs, idx))):
+        got = sops.splitter_ranks(x, k.contiguous(), p.contiguous(), i.contiguous(), me)
+        errs.append(max_abs_err(torch, got, sref.ranks(x, k, p, i, me), "kernels", f"K2 tagged {kind}"))
+    return dict(ms=summary["ms"], plain_ms=summary["plain_ms"], bound_ms=summary["bound_ms"],
+                bound_by=summary["bound_by"], library_ms=summary["library_ms"], max_abs_err=max(errs))
+
+
+def kernels_k3(torch, mops, mref, gen, details):
+    """K3 on the key-only merge rounds (whp rounds 1-2, the exact round
+    clipped to n_max), widths that are no multiple of a span, one side all
+    sentinel, all-equal keys, W = 1, and float windows with ±0.0 and NaN."""
+    int_max = torch.iinfo(torch.int32).max
+    errs = []
+
+    def check(a, b, out_w, plain_rows, what):
+        got = mops.merge_partitioned(a, b, width=out_w)
+        tile = min(mops.TILE, mops._pow2_at_least(a.shape[1]))
+        ap, bp = a[:plain_rows].contiguous(), b[:plain_rows].contiguous()
+        errs.append(max_abs_err(torch, got[:plain_rows], mref.merge_windows(ap, bp, tile, out_w),
+                                "kernels", f"K3 {what}"))
+        return tile, ap, bp
+
+    summary = None
+    for what, rows, w, out_w, plain_rows in (("whp round 1", 8192, 1256, 2512, 8192),
+                                             ("whp round 2", 4096, 2512, 5024, 4096),
+                                             ("exact round", 8192, 65536, 79008, 64)):
         a = sorted_rows(torch, rows, w, torch.int32, gen, True)
         b = sorted_rows(torch, rows, w, torch.int32, gen, True)
-        got = mops.merge_partitioned(a, b, width=out_w)
-        tile = min(mops.TILE, mops._pow2_at_least(w))
-        ap, bp = a[:plain_rows].contiguous(), b[:plain_rows].contiguous()
-        want = mref.merge_windows(ap, bp, tile, out_w)
-        errs.append(max_abs_err(torch, got[:plain_rows], want, "kernels", f"K3 {rows}x{w}"))
-        ms = time_ms(torch, lambda: mops.merge_partitioned(a, b, width=out_w))
-        spans = -(-out_w // tile)
-        lg = int(math.log2(tile))
-        b_ms, b_by = bound((2 * a.numel() + rows * out_w) * 4, rows * spans * 2 * tile * lg)
-        d = dict(kernel="K3", shape=[rows, w], out_width=out_w, ms=ms, bound_ms=b_ms,
-                 plain_rows=plain_rows,
+        tile, ap, bp = check(a, b, out_w, plain_rows, what)
+        # bytes: the inputs that reach the first out_w columns, and the output
+        b_ms, b_by = bound(rows * (min(2 * w, out_w) + out_w) * 4, rows * out_w)
+        lib = library_timed(torch, lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1))
+        d = dict(kernel="K3", round=what, shape=[rows, w], out_width=out_w,
+                 **timed(torch, lambda: mops.merge_partitioned(a, b, width=out_w)),
+                 bound_ms=b_ms, bound_by=b_by, plain_rows=plain_rows,
                  plain_ms=time_ms(torch, lambda: mref.merge_windows(ap, bp, tile, out_w), target_ms=1),
-                 library_ms=time_ms(torch, lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1)))
+                 library_ms=lib["ms"], library_device_ms=lib["device_ms"])
         details.append(d)
-        if w == 1256:
-            entries["K3"] = dict(ms=ms, plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=d["library_ms"])
-    # float32 windows with ±0.0 and NaN: runs as a bitonic network leaves
+        summary = summary or d
+    # edges: clipped widths no multiple of any span, one side all sentinel,
+    # all-equal keys, one-key rows
+    for what, rows, w, out_w in (("clipped 2000", 512, 1256, 2000), ("clipped 5001", 256, 3000, 5001),
+                                 ("clipped 7777", 64, 4000, 7777), ("W = 1", 1000, 1, 2),
+                                 ("W = 1 clipped", 1000, 1, 1)):
+        a = sorted_rows(torch, rows, w, torch.int32, gen, True)
+        b = sorted_rows(torch, rows, w, torch.int32, gen, True)
+        check(a, b, out_w, rows, what)
+    a = sorted_rows(torch, 1024, 1256, torch.int32, gen, False)
+    sent = torch.full_like(a, int_max)
+    check(a, sent, 2512, 1024, "b all sentinel")
+    check(sent, a, 2000, 1024, "a all sentinel, clipped")
+    same = torch.full_like(a, 7)
+    check(same, same.clone(), 2512, 1024, "all-equal keys")
+    # float windows with ±0.0 and NaN: runs as a bitonic network leaves
     # them (NaNs in place), so the diagonals come from the replayed search
     choice = torch.tensor([-0.0, 0.0, float("nan"), 1.0, -1.0], device="cuda")
     rows, w, out_w = 8192, 1256, 2512
     fa = choice[torch.randint(0, 5, (rows, w), device="cuda", generator=gen)]
     fb = choice[torch.randint(0, 5, (rows, w), device="cuda", generator=gen)]
-    tile = min(mops.TILE, mops._pow2_at_least(w))
-    errs.append(max_abs_err(torch, mops.merge_partitioned(fa, fb, width=out_w),
-                            mref.merge_windows(fa, fb, tile, out_w), "kernels", "K3 float32 ±0/NaN"))
+    tile, _, _ = check(fa, fb, out_w, rows, "float32 ±0/NaN")
+    check(fa[:512].to(torch.bfloat16), fb[:512].to(torch.bfloat16), 2000, 512, "bfloat16 ±0/NaN clipped")
     spans = -(-out_w // tile)
     lg = int(math.log2(2 * tile))
     b_ms, _ = bound((2 * fa.numel() + rows * out_w) * 4, rows * spans * tile * lg)
-    details.append(dict(kernel="K3", dtype="float32 ±0.0/NaN", shape=[rows, w], out_width=out_w,
-                        ms=time_ms(torch, lambda: mops.merge_partitioned(fa, fb, width=out_w)),
+    details.append(dict(kernel="K3", round="float32 ±0.0/NaN windows", shape=[rows, w], out_width=out_w,
+                        **timed(torch, lambda: mops.merge_partitioned(fa, fb, width=out_w)),
                         bound_ms=b_ms,
                         plain_ms=time_ms(torch, lambda: mref.merge_windows(fa, fb, tile, out_w)),
-                        library_ms=time_ms(torch, lambda: torch.sort(torch.cat([fa, fb], dim=-1), dim=-1))))
-    entries["K3"]["max_abs_err"] = max(errs)
-    emit({"phase": "kernels", "ok": True, "details": details})
-    return entries
+                        library_ms=library_timed(torch, lambda: torch.sort(torch.cat([fa, fb], dim=-1), dim=-1))["ms"]))
+    return dict(ms=summary["ms"], plain_ms=summary["plain_ms"], bound_ms=summary["bound_ms"],
+                bound_by=summary["bound_by"], library_ms=summary["library_ms"], max_abs_err=max(errs))
 
 
 def sorted_reference(torch, x):
@@ -512,27 +665,20 @@ def phase_profile(torch, core):
         for rung, (tier, tier_cfg) in enumerate(cfg.tier_ladder()[:-1]):
             pos = _positions(tier_cfg, rung, None, x.device)
             stages[f"route_{tier}"] = time_ms(torch, lambda: route(prep, tier_cfg, pos), target_ms=50)
-        wall_ms = run_sort(torch, core, x, vals, cfg)[0] * 1e3
+        walls_ms = [run_sort(torch, core, x, vals, cfg)[0] * 1e3 for _ in range(5)]
+        wall_ms = statistics.median(walls_ms)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             core.bsp_sort_safe(x, cfg, values=vals)
             torch.cuda.synchronize()
             profiled_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for ev in prof.key_averages():
-            # device-side events only: a host op repeats its kernels' time
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0)
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, ev.key, ev.count))
+        rows = [(ms, k, c) for k, (ms, c) in device_split(torch, prof).items()]
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
         # idle share against the unprofiled wall: the profiler slows the host
         cells.append(dict(algorithm=algo, dist=dist, payload=bool(nv), stage_ms=stages, wall_ms=wall_ms,
+                          walls_ms=walls_ms,
                           profiled_wall_ms=profiled_ms, device_busy_ms=busy,
                           idle_share=max(0.0, 1 - busy / wall_ms),
                           top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:8]]))

@@ -9,22 +9,31 @@
 // kernel merges each window pair with the bitonic merge network over
 // concat(aw, reverse(bw)) and keeps the first TILE outputs.
 //
-// What bounds it on an H100: a merge reads each input key once and writes
-// each output key once, so the floor is device-memory bytes. The TPU
-// version also materialised the (rows, spans, TILE) windows of both sides
-// in device memory — 4 GiB a side at the exact tier of the full-width
-// configuration — and ran lg(2*TILE) network substages per window.
+// What bounds it on an H100: a merge reads each input key that reaches
+// the output once and writes each output key once, so the floor is
+// device-memory bytes: rows * (min(2W, out_width) + out_width) words. The
+// TPU version also materialised the (rows, spans, TILE) windows of both
+// sides in device memory — 4 GiB a side at the exact tier of the
+// full-width configuration — and ran lg(2*TILE) network substages per
+// window.
 //
-// Design: the GPU merge path. One CTA per (row, span) loads its two TILE
-// windows straight into shared memory with sentinel fill past the row end
-// and writes only output columns below out_width; no window tensor exists
-// in device memory. Two routes, by key type:
+// Design: the GPU merge path, with no window tensor in device memory and
+// only output columns below out_width written. Two routes, by key type:
 //
-// * int32 keys: the CTA finds its diagonal itself by one binary search
-//   over the row pair in device memory (a-elements first on ties, the
-//   split ia(d) = #{i : i + #{b_j < a_i} < d}), and places every window
-//   element by its rank in the other window. Equal integer keys are equal
-//   in every bit, so this gives the TPU network's bytes.
+// * int32 keys (uint32 keys arrive biased to int32): two launches. A
+//   partition kernel, one thread per span boundary of every row at once,
+//   binary-searches the merge path's split there (a-elements first on
+//   ties) into an int32 scratch. The merge kernel, one CTA per (row,
+//   span) of 256 threads x an odd count of items (at most 3840 outputs),
+//   stages exactly the span's inputs a[ia:ia'] and b[ib:ib'] in shared
+//   memory by 16-byte cp.async copies; each thread finds its own
+//   sub-diagonal by one search in shared memory, merges its items in
+//   registers into a shared-memory copy of the span (an odd item count
+//   keeps those writes free of bank conflicts), and the span goes out by
+//   16-byte stores. Equal integer keys are equal in every bit, so any
+//   span width gives the TPU network's bytes. No thread searches alone on
+//   a CTA's critical path, and no element is placed by a search of its
+//   own.
 // * float32 and bfloat16 keys: -0.0 and +0.0 compare equal but differ in
 //   their bits, and NaNs compare false, so only the TPU's own network
 //   gives its bytes, and only jnp.searchsorted's own probe sequence gives
@@ -35,13 +44,15 @@
 //   kernel runs the network: lg(2*TILE) substages (11 at TILE = 1024) with
 //   a barrier each.
 #include "keys.cuh"
+#include "merge_path.cuh"
 
 namespace {
 
 using namespace repro;
 
-constexpr int kMaxTile = 1024;
+constexpr int kMaxTile = 1024;  // float route: network window
 constexpr int kThreads = 256;
+constexpr int kMaxItems = 15;  // int route: outputs per thread
 
 __device__ __forceinline__ int search_levels(int64_t n) {  // ceil(lg(n + 1))
   int levels = 0;
@@ -124,58 +135,92 @@ __global__ void merge_network_kernel(const typename K::T* __restrict__ a,
   for (int t = threadIdx.x; t < tile && t < limit; t += blockDim.x) orow[t] = s[t];
 }
 
-__global__ void merge_path_rank_kernel(const int32_t* __restrict__ a,
-                                       const int32_t* __restrict__ b,
-                                       int32_t* __restrict__ out, int64_t width,
-                                       int64_t out_width, int tile, int64_t spans) {
-  __shared__ int32_t sa[kMaxTile];
-  __shared__ int32_t sb[kMaxTile];
-  __shared__ int64_t s_ia;
-  const int64_t block = blockIdx.x;
-  const int64_t row = block / spans;
-  const int64_t d = (block % spans) * tile;  // first output column of the span
+// int32 route, first launch: split[row, k] = the a-elements among the
+// first d = min(k * span, out_width) outputs of the row's merge, a first
+// on ties; one thread per boundary k in [0, spans] of every row.
+__global__ void merge_path_split_kernel(const int32_t* __restrict__ a,
+                                        const int32_t* __restrict__ b,
+                                        int32_t* __restrict__ split, int64_t rows,
+                                        int64_t width, int64_t out_width, int span,
+                                        int64_t spans) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= rows * (spans + 1)) return;
+  const int64_t row = idx / (spans + 1);
+  const int64_t d = min64((idx % (spans + 1)) * span, out_width);
   const int32_t* ar = a + row * width;
   const int32_t* br = b + row * width;
-  if (threadIdx.x == 0) {
-    // merge path: a-elements among the first d outputs, a first on ties
-    int64_t lo = d > width ? d - width : 0;
-    int64_t hi = d < width ? d : width;
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      if (!(br[d - 1 - mid] < ar[mid])) lo = mid + 1; else hi = mid;
+  int64_t lo = max64(0, d - width), hi = min64(d, width);
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (!(br[d - 1 - mid] < ar[mid])) lo = mid + 1; else hi = mid;
+  }
+  split[idx] = static_cast<int32_t>(lo);
+}
+
+__host__ __device__ __forceinline__ int inputs_bytes(int span) { return round16(span * 4 + 48); }
+
+// int32 route, second launch: one CTA per (row, span) merges the span's
+// inputs, which the first launch's splits bound, into output columns
+// [d0, d1).
+__global__ void __launch_bounds__(kThreads)
+    merge_path_int_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                          int32_t* __restrict__ out, const int32_t* __restrict__ split,
+                          int64_t width, int64_t out_width, int span, int64_t spans) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t row = blockIdx.x / spans;
+  const int64_t k = blockIdx.x % spans;
+  const int64_t d0 = k * span;
+  const int64_t d1 = min64(d0 + span, out_width);
+  const int32_t* sp = split + row * (spans + 1) + k;
+  const int64_t a0 = sp[0];
+  const int64_t b0 = d0 - a0;
+  const int na = sp[1] - sp[0];
+  const int nb = static_cast<int>(d1 - sp[1] - b0);
+  const int len = static_cast<int>(d1 - d0);
+  const int32_t* sa = stage(smem, a + row * width + a0, na);
+  const int32_t* sb = stage(align16(sa + na), b + row * width + b0, nb);
+  int32_t* orow = out + row * out_width + d0;
+  int32_t* so = placed<int32_t>(smem + inputs_bytes(span), orow);
+  cp_async_wait_all();
+  __syncthreads();
+  const int items = span / kThreads;
+  const int dd = threadIdx.x * items;
+  if (dd < len) {
+    int lo = max(0, dd - nb), hi = min(dd, na);
+    while (lo < hi) {  // a-elements among the span's first dd outputs
+      const int mid = (lo + hi) >> 1;
+      if (!(sb[dd - 1 - mid] < sa[mid])) lo = mid + 1; else hi = mid;
     }
-    s_ia = lo;
+    int i = lo, j = dd - lo;
+    // one past a slice is still inside the buffer; the guards never take it
+    int32_t va = sa[i], vb = sb[j];
+    const int end = min(dd + items, len);
+    for (int c = dd; c < end; ++c) {
+      if (j >= nb || (i < na && !(vb < va))) {
+        so[c] = va;
+        va = sa[++i];
+      } else {
+        so[c] = vb;
+        vb = sb[++j];
+      }
+    }
   }
   __syncthreads();
-  const int64_t ia = s_ia;
-  const int64_t ib = d - ia;
-  const int32_t fill = KeyI32::sentinel();
-  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-    sa[t] = (ia + t < width) ? ar[ia + t] : fill;
-    sb[t] = (ib + t < width) ? br[ib + t] : fill;
-  }
-  __syncthreads();
-  int32_t* orow = out + row * out_width + d;
-  const int64_t limit = out_width - d;  // columns of this span to produce
-  for (int t = threadIdx.x; t < tile; t += blockDim.x) {
-    const int32_t va = sa[t];
-    int lo = 0, hi = tile;
-    while (lo < hi) {  // #{sb < va}
-      const int mid = (lo + hi) >> 1;
-      if (sb[mid] < va) lo = mid + 1; else hi = mid;
-    }
-    int pos = t + lo;
-    if (pos < tile && pos < limit) orow[pos] = va;
-    const int32_t vb = sb[t];
-    lo = 0;
-    hi = tile;
-    while (lo < hi) {  // #{sa <= vb}
-      const int mid = (lo + hi) >> 1;
-      if (!(vb < sa[mid])) lo = mid + 1; else hi = mid;
-    }
-    pos = t + lo;
-    if (pos < tile && pos < limit) orow[pos] = vb;
-  }
+  store(orow, so, len);
+}
+
+cudaError_t launch_int(const int32_t* a, const int32_t* b, int32_t* out, int32_t* split,
+                       int64_t rows, int64_t width, int64_t out_width, int span, int64_t spans,
+                       cudaStream_t stream) {
+  const int64_t bounds = rows * (spans + 1);
+  merge_path_split_kernel<<<static_cast<unsigned>((bounds + kThreads - 1) / kThreads), kThreads, 0,
+                            stream>>>(a, b, split, rows, width, out_width, span, spans);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int smem = inputs_bytes(span) + span * 4 + 16;
+  merge_path_int_kernel<<<static_cast<unsigned>(rows * spans), kThreads, smem, stream>>>(
+      a, b, out, split, width, out_width, span, spans);
+  return cudaGetLastError();
 }
 
 template <class K>
@@ -183,7 +228,6 @@ cudaError_t launch_network(const void* a, const void* b, void* out, int32_t* dia
                            int64_t rows, int64_t width, int64_t out_width, int tile,
                            int64_t spans, cudaStream_t stream) {
   using T = typename K::T;
-  if (diag == nullptr) return cudaErrorInvalidValue;
   const int64_t diag_blocks = (rows * spans + kThreads - 1) / kThreads;
   merge_path_diag_kernel<K><<<static_cast<unsigned>(diag_blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), diag, rows, width, tile, spans);
@@ -198,26 +242,33 @@ cudaError_t launch_network(const void* a, const void* b, void* out, int32_t* dia
 }  // namespace
 
 // a, b (rows, width) sorted rows; out (rows, out_width), out_width <=
-// 2 * width; diag (rows * spans,) int32 scratch for float keys (may be
-// NULL for int32), spans = ceil(out_width / tile); tile a power of two in
-// [1, 1024]. dtype: 0 int32, 1 float32, 3 bfloat16. Returns a cudaError_t.
+// 2 * width. tile: the outputs per span — for int32 keys a multiple of 256
+// up to 256 * 15 (an odd multiple keeps the staging free of bank
+// conflicts), for float keys the network's window, a power of two in
+// [1, 1024]; spans = ceil(out_width / tile). diag: int32 scratch of
+// rows * (spans + 1) (int32: the splits at the span boundaries) or rows *
+// spans (float: the windows' diagonals). dtype: 0 int32, 1 float32, 3
+// bfloat16. Returns a cudaError_t.
 extern "C" int repro_merge_path(const void* a, const void* b, void* out, void* diag,
                                 int64_t rows, int64_t width, int64_t out_width, int tile,
                                 int dtype, void* stream) {
-  if (rows < 0 || width < 0 || out_width < 0 || out_width > 2 * width || tile < 1 ||
-      tile > kMaxTile || (tile & (tile - 1)) != 0)
+  if (rows < 0 || width < 0 || width > 0x7fffffffLL || out_width < 0 || out_width > 2 * width ||
+      tile < 1 || diag == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || out_width == 0) return 0;
+  const bool int_route = dtype == 0;
+  if (int_route ? (tile % kThreads != 0 || tile > kThreads * kMaxItems)
+                : (tile > kMaxTile || (tile & (tile - 1)) != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t spans = (out_width + tile - 1) / tile;
-  if (rows * spans > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows * (spans + 1) > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* dg = static_cast<int32_t*>(diag);
   switch (dtype) {
     case 0:
-      merge_path_rank_kernel<<<static_cast<unsigned>(rows * spans), kThreads, 0, s>>>(
-          static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-          static_cast<int32_t*>(out), width, out_width, tile, spans);
-      return static_cast<int>(cudaGetLastError());
+      return static_cast<int>(launch_int(static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+                                         static_cast<int32_t*>(out), dg, rows, width, out_width, tile,
+                                         spans, s));
     case 1: return static_cast<int>(launch_network<KeyF32>(a, b, out, dg, rows, width, out_width, tile, spans, s));
     case 3: return static_cast<int>(launch_network<KeyBF16>(a, b, out, dg, rows, width, out_width, tile, spans, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -39,11 +39,12 @@ SIGNATURES = {
     # keys in, values in, keys out, values out, rows, width, key dtype,
     # value bytes, stream
     "repro_bitonic_sort_kv_rows": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    # data, n, queries, query procs|NULL, proc tag, query idxs|NULL,
-    # row procs|NULL, S, B, row flags (B int32 scratch), out, dtype, stream
-    "repro_splitter_ranks": [_P, _I64, _P, _P, _I, _P, _P, _I64, _I64, _P, _P, _I, _P],
-    # a, b, out, diagonals (rows * spans int32 scratch), rows, width,
-    # out_width, tile, dtype, stream
+    # data, n, queries, query procs|NULL, proc tag, query idxs|NULL, query
+    # row stride (S, or 0 for one row broadcast), row procs|NULL, S, B, row
+    # flags (B int32 scratch), out, dtype, stream
+    "repro_splitter_ranks": [_P, _I64, _P, _P, _I, _P, _I64, _P, _I64, _I64, _P, _P, _I, _P],
+    # a, b, out, span splits (int32 scratch), rows, width, out_width, span,
+    # dtype, stream
     "repro_merge_path": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
 }
 

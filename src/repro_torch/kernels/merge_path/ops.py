@@ -1,11 +1,14 @@
 """Wrappers for the merge-path merge kernel (K3, ``csrc/merge_path.cu``).
 
 * :func:`merge_partitioned` — merge of sorted (rows, W) pairs cut into
-  ``TILE``-wide output spans, used by the Ph6 rank-merge tail for key-only
-  pairs under ``merge_backend="pallas"``. A CUDA tensor launches the kernel,
-  which finds each span's diagonal itself; a CPU tensor takes the window
-  merge in ``ref.py``. ``width`` produces only the first output columns (the
-  merge tree clips every round to the receive bound). Keys are int32,
+  output spans, used by the Ph6 rank-merge tail for key-only pairs under
+  ``merge_backend="pallas"``. A CUDA tensor launches two kernels: for int32
+  keys a partition kernel splits the merge path at every span boundary and
+  a merge kernel merges each span of :func:`int_span` outputs; for float
+  keys a diagonal kernel replays the JAX package's search and the TPU's
+  network merges each ``TILE``-wide window. A CPU tensor takes the window
+  merge in ``ref.py``. ``width`` produces only the first output columns
+  (the merge tree clips every round to the receive bound). Keys are int32,
   float32 or bfloat16; the bytes equal the JAX package's, ties of
   ``-0.0``/``+0.0`` and NaNs included.
 * :func:`merge` — whole-row merge of rows of any two widths: both sides are
@@ -21,8 +24,11 @@ from ...core.types import sentinel_for
 from .. import _build
 from . import ref
 
-#: output span per merge-path CTA (power of two ≤ 1024).
+#: output span per window of the float route (power of two ≤ 1024), and
+#: the CPU path's window, as the JAX package's.
 TILE = 1024
+#: int32 route: threads per merge CTA, and the most outputs each merges.
+THREADS, MAX_ITEMS = 256, 15
 
 _KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
 
@@ -34,6 +40,16 @@ def _pow2_at_least(n: int, floor: int = 128) -> int:
     while w < n:
         w *= 2
     return w
+
+
+def int_span(out_w: int) -> int:
+    """Outputs per CTA of the int32 route: THREADS x an odd item count (at
+    most MAX_ITEMS), as few spans per row as that allows, evened out over
+    them. Odd, so each thread's outputs fall in distinct shared-memory
+    banks; any span gives the same bytes for integer keys."""
+    spans = -(-max(out_w, 1) // (THREADS * MAX_ITEMS))
+    items = -(-max(out_w, 1) // (spans * THREADS)) | 1
+    return THREADS * items
 
 
 def merge_partitioned(a: torch.Tensor, b: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
@@ -51,11 +67,16 @@ def merge_partitioned(a: torch.Tensor, b: torch.Tensor, width: Optional[int] = N
     code = _build.dtype_code(a, _KERNEL_DTYPES)
     lib = _build.load()
     out = torch.empty((rows, out_w), dtype=a.dtype, device=a.device)
-    # float keys: the spans' diagonals are solved by a first kernel into this
-    diag = torch.empty((rows * -(-out_w // tile),) if a.is_floating_point() else (0,),
-                       dtype=torch.int32, device=a.device)
+    # the first kernel's answers: the windows' diagonals (float keys), or the
+    # merge path's splits at the span boundaries, first and last included
+    if a.is_floating_point():
+        span, splits = tile, rows * -(-out_w // tile)
+    else:
+        span = int_span(out_w)
+        splits = rows * (-(-out_w // span) + 1)
+    diag = torch.empty((max(splits, 1),), dtype=torch.int32, device=a.device)
     rc = lib.repro_merge_path(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), diag.data_ptr(), rows, W, out_w, tile,
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), diag.data_ptr(), rows, W, out_w, span,
         code, _build.stream_handle(),
     )
     _build.check_launch(lib, rc, "merge_sorted_tiles")

@@ -293,6 +293,70 @@ def test_kernels_match_plain_on_card():
         for dt in (torch.float32, torch.bfloat16):
             ga, gb = fa.to(dt), fb.to(dt)
             assert same(mops.merge_partitioned(ga, gb), mref.merge_windows(ga, gb, tile, 2 * w))
+    _rank_merge_edges_on_card(g)
     counts = _build.counts()
     for name in ("bitonic_sort_tiles", "bitonic_sort_kv_tiles", "splitter_ranks", "merge_sorted_tiles"):
         assert counts[name] > 0, name
+
+
+def _rank_merge_edges_on_card(g):
+    """K2 on each route and K3's int32 spans at their edges, bit for bit
+    against the plain versions (the cases of test_torch_rank_merge_edges)."""
+    imax = torch.iinfo(torch.int32).max
+
+    def runs(rows, n, hi):
+        x = torch.sort(torch.randint(0, hi, (rows, n), device="cuda", generator=g).int(), dim=-1).values
+        keep = torch.randint(0, n + 1, (rows, 1), device="cuda", generator=g)
+        return torch.where(torch.arange(n, device="cuda") < keep, x, imax).contiguous()
+
+    def plain(data, q, side):
+        tag = torch.full(q.shape, 1 if side == "right" else -1, dtype=torch.int32, device="cuda")
+        zeros = torch.zeros(q.shape, dtype=torch.int32, device="cuda")
+        return sref.ranks(data, q, tag, zeros, torch.zeros(data.shape[0], dtype=torch.int32, device="cuda"))
+
+    pos = torch.sort(torch.randint(0, 3000, (8, 1256), device="cuda", generator=g).int(), dim=-1).values
+    pos += torch.arange(1256, dtype=torch.int32, device="cuda")  # strictly increasing
+    o = torch.arange(2512, dtype=torch.int32, device="cuda").expand(8, 2512)  # row stride 0
+    data, q = runs(8, 1256, 500), runs(8, 2512, 520)
+    wide, wq = runs(2, 79008, 10**6), runs(2, 79008, 10**6)
+    step2 = (torch.arange(10, dtype=torch.int32, device="cuda")[::2],  # strided 1-D query rows
+             torch.sort(torch.randint(0, 520, (900,), device="cuda", generator=g).int()).values[::2])
+    for side in ("left", "right"):
+        assert torch.equal(sops.rank_in(pos, o, side=side), plain(pos, o, side))
+        for q1 in step2:
+            assert torch.equal(sops.rank_in(pos[0], q1, side=side), plain(pos[:1], q1[None].contiguous(), side)[0])
+        for qq in (q, q[:, torch.randperm(2512, device="cuda", generator=g)].contiguous()):
+            assert torch.equal(sops.rank_in(data, qq, side=side), plain(data, qq, side))
+        assert torch.equal(sops.rank_in(wide, wq, side=side)[:1], plain(wide[:1], wq[:1], side))
+        choice = torch.tensor([-0.0, 0.0, 1.0, float("inf")], device="cuda")
+        for dt, n, s in ((torch.float32, 300, 500), (torch.bfloat16, 300, 500), (torch.float32, 3000, 2000)):
+            # rows of one tile, and of several (n + s > 4096)
+            fd = torch.sort(choice[torch.randint(0, 4, (4, n), device="cuda", generator=g)], dim=-1).values
+            fd[0, n // 2] = float("nan")  # out of order: the masked count
+            fd[1, -30:] = float("nan")  # NaN tail: in order
+            fq = torch.sort(choice[torch.randint(0, 4, (4, s), device="cuda", generator=g)], dim=-1).values
+            fq[2, -3:] = float("nan")  # NaN queries: a search each
+            fd, fq = fd.to(dt), fq.to(dt)
+            got = sops._ranks(fd, fq, None, 1 if side == "right" else -1, None, None)
+            assert torch.equal(got, plain(fd, fq, side))
+    x = torch.sort(torch.randint(0, 40, (16, 1256), device="cuda", generator=g).int(), dim=-1).values
+    keys = x.gather(1, torch.randint(0, 1256, (16, 300), device="cuda", generator=g))
+    procs = torch.randint(0, 8, (16, 300), device="cuda", generator=g).int()
+    idx = torch.randint(0, 1256, (16, 300), device="cuda", generator=g).int()
+    me = torch.randint(0, 8, (16,), device="cuda", generator=g).int()
+    order = torch.argsort((keys.long() << 32) | (procs.long() << 16) | idx.long(), dim=-1)
+    for k, p, i in ([t.gather(1, order) for t in (keys, procs, idx)], (keys, procs, idx)):
+        assert torch.equal(sops.splitter_ranks(x, k, p, i, me), sref.ranks(x, k, p, i, me))
+        got = sops.splitter_ranks(x[0], k[0, ::2], p[0, ::2], i[0, ::2], me[0])  # strided tags too
+        assert torch.equal(got, sref.ranks(x[:1], *(t[:1, ::2].contiguous() for t in (k, p, i)), me[:1])[0])
+    for w, widths in ((1, (1, 2)), (1256, (2000, 2512)), (1921, (2815, 2816, 2817, 3840, 3841, 3842)),
+                      (40000, (79008,))):
+        a, b = runs(4, w, 10**6), runs(4, w, 10**6)
+        tile = min(mops.TILE, mops._pow2_at_least(w))
+        for width in widths:
+            assert torch.equal(mops.merge_partitioned(a, b, width), mref.merge_windows(a, b, tile, width))
+    a = runs(8, 700, 100)
+    sent, same = torch.full_like(a, imax), torch.full_like(a, 7)
+    for pa, pb in ((a, sent), (sent, a), (same, same.clone())):
+        for width in (1000, 1400):
+            assert torch.equal(mops.merge_partitioned(pa, pb, width), mref.merge_windows(pa, pb, 1024, width))
