@@ -8,17 +8,21 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 1. ``device``      — the card, its power limit, torch and CUDA versions.
 2. ``build``       — builds the CUDA kernels from ``src/repro_torch/csrc``
                      with nvcc for sm_90a; seconds and the ``-Xptxas -v``
-                     register / shared-memory report.
-3. ``kernels``     — each kernel (K1 bitonic tile sort for int32, float32,
-                     uint32 and bfloat16 keys, K2 tagged ranks, K3
-                     merge-path merge, also on float windows with ±0.0 and
-                     NaN, K4 key-value tile sort) against its plain PyTorch
-                     version at the paths' shapes: bit for bit equal.
+                     report: registers, spilled bytes and static shared
+                     memory of every kernel.
+3. ``kernels``     — each kernel against its plain PyTorch version, bit for
+                     bit: K1 bitonic tile sort at every tile width 128 ..
+                     16384 for int32, float32, uint32 and bfloat16 keys
+                     (float rows with ±0.0 and NaN); K4 key-value tile sort
+                     for 2-, 4- and 8-byte values under every key dtype with
+                     heavy ties, at widths 128, 512, 1024 and 16384; K2
+                     tagged ranks; K3 merge-path merge, also on float
+                     windows with ±0.0 and NaN; at the paths' shapes.
                      Times by CUDA events (warmed, median of repeats) and
                      profiler device time, beside the kernel's bound, its
                      plain version's time (on every row, or on the
                      ``plain_rows`` a row names; never scaled) and one
-                     PyTorch library call.
+                     PyTorch library call (events and device time).
 4. ``small_parity``— whole sorts on the card against the plain path on the
                      CPU at p=8, n_per_proc=512, byte-identical: det, iran,
                      ran, [BSI], the bitonic sample sort, float keys with
@@ -74,6 +78,10 @@ IRAN = dict(SLICE, algorithm="iran")
 INT_MIN = -(2**31)
 
 
+def key_dtypes(torch):
+    return (torch.int32, torch.float32, torch.uint32, torch.bfloat16)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -90,6 +98,39 @@ def nvidia_smi() -> str:
     if out.returncode != 0:
         fail("device", f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip()
+
+
+def ptxas_report(log: str) -> list:
+    """One line per kernel of the ``-Xptxas -v`` report: source, kernel
+    (demangled where ``c++filt`` is found), registers, spill stores and
+    loads in bytes, static shared memory."""
+    import re
+    import shutil
+
+    rows, src, cur = [], "", None
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        elif "Compiling entry function" in ln:
+            cur = dict(source=src, kernel=ln.split("'")[1], spill_stores=0, spill_loads=0)
+            rows.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    if shutil.which("c++filt") and rows:
+        out = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                             capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, name in zip(rows, out):
+                name = re.sub(r"\(anonymous namespace\)::|^void ", "", name)
+                r["kernel"] = name.split("(")[0]
+    return [f"{r['source']} {r['kernel']}: {r.get('registers')} registers, "
+            f"{r['spill_stores']}/{r['spill_loads']} B spilled/reloaded, "
+            f"{r.get('static_smem', 0)} B static smem" for r in rows]
 
 
 def time_ms(torch, fn, target_ms: float = 300.0, max_reps: int = 20) -> float:
@@ -209,31 +250,70 @@ def phase_kernels(torch, mods):
     bops, bref, sops, sref, mops, mref = mods
     gen = torch.Generator(device="cuda").manual_seed(0)
     details, entries = [], {}
-    int_max = torch.iinfo(torch.int32).max
+    entries["K1"] = kernels_k1(torch, bops, bref, gen, details)
+    entries["K4"] = kernels_k4(torch, bops, bref, gen, details)
+    entries["K2"] = kernels_k2(torch, sops, sref, gen, details)
+    entries["K3"] = kernels_k3(torch, mops, mref, gen, details)
+    emit({"phase": "kernels", "ok": True, "details": details})
+    return entries
 
-    # K1 — the main path's tiles: 128 runs x 4 tiles of 16384, and whole
-    # runs; every key dtype, with sentinel-valued and ±0.0 keys
+
+def tile_keys(torch, dtype, rows, w, gen, ties=False):
+    """(rows, w) keys of ``dtype`` on the card. Wide random keys, or heavy
+    ties (50 values: the order of equal keys' values is the network's);
+    float keys get a row of -0.0/+0.0 runs and a row of NaNs of both signs,
+    uint32 keys run above 2^31 and hold the uint32 sentinel."""
+    if ties:
+        x = torch.randint(0, 50, (rows, w), device="cuda", generator=gen)
+        if dtype.is_floating_point:
+            choice = torch.tensor([-0.0, 0.0, 1.5, -2.0, float("nan")], device="cuda")
+            return choice[x % 5].to(dtype)
+        return (x.int() * 100_000_000).view(torch.uint32) if dtype == torch.uint32 else x.int()
+    x = torch.randint(-(2**30), 2**30, (rows, w), device="cuda", generator=gen)
+    if dtype == torch.uint32:
+        x = x.int() * 2
+        x[:3, :100] = -1  # the uint32 sentinel
+        return x.view(torch.uint32)
+    if not dtype.is_floating_point:
+        x = x.int()
+        x[:3, :100] = torch.iinfo(torch.int32).max
+        return x
+    x = x.float()
+    x[:3, :100] = float("inf")
+    x[3, : w // 3] = -0.0
+    x[3, w // 6 : w // 2] = 0.0
+    x[4, ::7] = float("nan")
+    x[4, 3::11] = -float("nan")
+    return x.to(dtype)
+
+
+def network_ops(rows, w):
+    lg = int(math.log2(w))
+    return rows * (w // 2) * lg * (lg + 1) // 2
+
+
+def kernels_k1(torch, bops, bref, gen, details):
+    """K1 bit for bit at every tile width 128 .. 16384 (each has its own
+    schedule) for every key dtype, float keys with ±0.0 and NaN rows; timed
+    at the main path's tiles, 128 runs x 4 tiles of 16384, and on whole
+    runs (the multi-tile sort)."""
     errs = []
-    for dtype in (torch.int32, torch.float32, torch.uint32, torch.bfloat16):
-        x = torch.randint(-(2**30), 2**30, (512, 16384), device="cuda", generator=gen)
-        if dtype == torch.uint32:
-            x = x.int() * 2
-            x[:3, :100] = -1  # the uint32 sentinel
-            x = x.view(torch.uint32)  # keys above 2^31 too
-        else:
-            x = x.to(dtype)
-            x[:3, :100] = int_max if dtype == torch.int32 else float("inf")
-            if dtype.is_floating_point:
-                x[3:6, :2000] = -0.0
-                x[3:6, 1000:3000] = 0.0
+    for dtype in key_dtypes(torch):
+        for lg in range(7, 15):
+            x = tile_keys(torch, dtype, 64, 1 << lg, gen)
+            errs.append(max_abs_err(torch, bops.sort_tiles(x), bref.sort_tiles(x), "kernels",
+                                    f"K1 {dtype} width {1 << lg}"))
+    entry = None
+    for dtype in key_dtypes(torch):
+        x = tile_keys(torch, dtype, 512, 16384, gen)
         errs.append(max_abs_err(torch, bops.sort_tiles(x), bref.sort_tiles(x), "kernels", f"K1 {dtype}"))
         rows, w = x.shape
-        lg = int(math.log2(w))
         k = timed(torch, lambda: bops.sort_tiles(x))
-        b_ms, b_by = bound(2 * x.numel() * x.element_size(), rows * (w // 2) * lg * (lg + 1) // 2)
+        b_ms, b_by = bound(2 * x.numel() * x.element_size(), network_ops(rows, w))
+        lib = library_timed(torch, lambda: torch.sort(x, dim=-1))
         d = dict(kernel="K1", dtype=str(dtype), shape=[rows, w], **k, bound_ms=b_ms,
                  plain_ms=time_ms(torch, lambda: bref.sort_tiles(x)),
-                 library_ms=library_timed(torch, lambda: torch.sort(x, dim=-1))["ms"])
+                 library_ms=lib["ms"], library_device_ms=lib["device_ms"])
         if dtype in (torch.int32, torch.float32):
             xm = torch.randint(-(2**30), 2**30, (128, 65536), device="cuda", generator=gen).to(dtype)
             errs.append(max_abs_err(torch, bops.sort(xm), torch.sort(xm, dim=-1).values, "kernels",
@@ -241,44 +321,54 @@ def phase_kernels(torch, mods):
             d.update(multi_tile_ms=time_ms(torch, lambda: bops.sort(xm)), multi_tile_shape=list(xm.shape))
         details.append(d)
         if dtype == torch.int32:
-            entries["K1"] = dict(ms=k["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=d["library_ms"])
-    entries["K1"]["max_abs_err"] = max(errs)
+            entry = dict(ms=k["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=d["library_ms"])
+    entry["max_abs_err"] = max(errs)
+    return entry
 
-    # K4 — key-value tiles: int32 keys in [0, 50) (heavy ties) with int32
-    # values, and float32 keys with ±0.0; (512, 16384)
+
+def kernels_k4(torch, bops, bref, gen, details):
+    """K4 bit for bit for 2-, 4- and 8-byte values under every key dtype,
+    with heavy ties (float keys with ±0.0 and NaN), at widths 128, 512, 1024
+    and 16384; timed at (512, 16384) with int32 values under int32 keys and
+    under float32 keys."""
     errs = []
-    for kind in ("int32", "float32"):
-        keys = torch.randint(0, 50, (512, 16384), device="cuda", generator=gen).int()
-        if kind == "float32":
-            keys = torch.tensor([-0.0, 0.0, 1.5, -2.0], device="cuda")[keys % 4]
+    for dtype in key_dtypes(torch):
+        for w in (128, 512, 1024, 16384):
+            keys = tile_keys(torch, dtype, 16, w, gen, ties=True)
+            for vdt in (torch.int16, torch.int32, torch.int64):
+                vals = torch.randperm(keys.numel(), device="cuda", generator=gen).reshape(keys.shape).to(vdt)
+                gk, gv = bops.sort_kv_tiles(keys, vals)
+                pk, pv = bref.sort_kv_tiles(keys, vals)
+                errs.append(max_abs_err(torch, gk, pk, "kernels", f"K4 keys {dtype} {vdt} width {w}"))
+                errs.append(max_abs_err(torch, gv, pv, "kernels", f"K4 values {dtype} {vdt} width {w}"))
+    entry = None
+    for dtype in (torch.int32, torch.float32):
+        keys = tile_keys(torch, dtype, 512, 16384, gen, ties=True)
         vals = torch.arange(keys.numel(), dtype=torch.int32, device="cuda").reshape(keys.shape)
         gk, gv = bops.sort_kv_tiles(keys, vals)
         pk, pv = bref.sort_kv_tiles(keys, vals)
-        errs.append(max_abs_err(torch, gk, pk, "kernels", f"K4 keys {kind}"))
-        errs.append(max_abs_err(torch, gv, pv, "kernels", f"K4 values {kind}"))
+        errs.append(max_abs_err(torch, gk, pk, "kernels", f"K4 keys {dtype}"))
+        errs.append(max_abs_err(torch, gv, pv, "kernels", f"K4 values {dtype}"))
         rows, w = keys.shape
-        lg = int(math.log2(w))
         k = timed(torch, lambda: bops.sort_kv_tiles(keys, vals))
-        b_ms, b_by = bound(2 * keys.numel() * 8, rows * (w // 2) * lg * (lg + 1) // 2)
+        b_ms, b_by = bound(2 * keys.numel() * 8, network_ops(rows, w))
 
         def library():  # two calls: a stable sort of the keys, then a gather
             order = torch.sort(keys, dim=-1, stable=True)
             return order.values, vals.gather(-1, order.indices)
 
-        d = dict(kernel="K4", keys=kind, values="int32", shape=[rows, w], **k, bound_ms=b_ms,
+        lib = library_timed(torch, library)
+        d = dict(kernel="K4", keys=str(dtype), values="int32", shape=[rows, w], **k, bound_ms=b_ms,
                  plain_ms=time_ms(torch, lambda: bref.sort_kv_tiles(keys, vals)),
-                 library_ms=library_timed(torch, library)["ms"], library="torch.sort + gather (two calls)")
+                 library_ms=lib["ms"], library_device_ms=lib["device_ms"],
+                 library="torch.sort + gather (two calls)")
         details.append(d)
-        if kind == "int32":
-            entries["K4"] = dict(ms=k["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=d["library_ms"])
-    entries["K4"]["max_abs_err"] = max(errs)
-
-    entries["K2"] = kernels_k2(torch, sops, sref, gen, details)
-    entries["K3"] = kernels_k3(torch, mops, mref, gen, details)
-    emit({"phase": "kernels", "ok": True, "details": details})
-    return entries
+        if dtype == torch.int32:
+            entry = dict(ms=k["ms"], plain_ms=d["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                         library_ms=d["library_ms"])
+    entry["max_abs_err"] = max(errs)
+    return entry
 
 
 def kernels_k2(torch, sops, sref, gen, details):
@@ -704,9 +794,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load()
-    ptxas = [ln.strip() for ln in build.build_log().splitlines()
-             if "registers" in ln or "Compiling entry" in ln or ln.startswith("==")]
-    emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
+          "ptxas": ptxas_report(build.build_log())})
 
     entries = phase_kernels(torch, (bops, bref, sops, sref, mops, mref))
     phase_small_parity(torch, core)

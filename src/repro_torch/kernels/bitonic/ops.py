@@ -23,7 +23,7 @@ from ...core.types import sentinel_for
 from .. import _build
 from . import ref
 
-#: widest single-tile sort: one 16384-key row fills 64 KiB of shared memory.
+#: widest single-tile sort: one CTA of 512 threads holding 32 keys each.
 MAX_WIDTH = 16384
 MIN_WIDTH = 128
 _KERNEL_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.bfloat16)

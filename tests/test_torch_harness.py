@@ -97,6 +97,36 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
+def test_chip_smoke_ptxas_report_reads_every_kernel():
+    """The build phase's register / spill / shared-memory summary, from a
+    ``-Xptxas -v`` log in nvcc's layout (demangled or not)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cta = ("_ZN48_GLOBAL__N__2790624d_15_bitonic_sort_cu_98d02c6013sort_rows_ctaINS_8CodecIntE"
+           "NS_7NoValueELi14EEEvPKNT_1TEPKT0_PS4_PS7_j")
+    log = "\n".join([
+        "== bitonic_sort.cu",
+        "ptxas info    : 0 bytes gmem",
+        f"ptxas info    : Compiling entry function '{cta}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {cta}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+        "== merge_path.cu",
+        "ptxas info    : Compiling entry function '_Z3fooi' for 'sm_90a'",
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 40 registers, 1024 bytes smem, 380 bytes cmem[0]",
+    ])
+    rows = smoke.ptxas_report(log)
+    assert len(rows) == 2
+    assert rows[0].startswith("bitonic_sort.cu ") and "sort_rows_cta" in rows[0]
+    assert rows[0].endswith(": 64 registers, 0/0 B spilled/reloaded, 0 B static smem")
+    assert rows[1].startswith("merge_path.cu ")
+    assert rows[1].endswith(": 40 registers, 12/16 B spilled/reloaded, 1024 B static smem")
+
+
 def test_default_device_without_card_raises():
     from repro_torch.core import SortConfig, bsp_sort_safe, prepared_from_reference
 

@@ -6,8 +6,9 @@ and the plain version itself, against the Pallas kernels run in interpret
 mode. The cases are those of ``tests/test_kernels_fast.py`` plus a
 multi-tile K1 row, K1's uint32 and bfloat16 keys, the key-value sort K4,
 and keys whose ties differ in their bits (the networks are not stable).
-Tolerance: exact bytes. The kernels themselves run only on the card
-(``test_kernels_match_plain_on_card``).
+Tolerance: exact bytes. The kernels themselves run on the card
+(``test_kernels_match_plain_on_card``); K1 and K4's source also runs on the
+CPU in ``test_torch_bitonic_emulated.py``.
 """
 from __future__ import annotations
 
@@ -263,6 +264,12 @@ def test_kernels_match_plain_on_card():
     xu = torch.randint(0, 2**31, (16, 4096), device="cuda", generator=g).to(torch.int32)
     xu = xu.view(torch.uint32)
     assert same(bops.sort_tiles(xu), bref.sort_tiles(xu))
+    # every tile width (each has its own schedule), every key dtype, with
+    # ±0.0 and NaN rows for the float keys
+    for dtype in (torch.int32, torch.uint32, torch.float32, torch.bfloat16):
+        for lg in range(7, 15):
+            x = _card_tile_keys(dtype, 4, 1 << lg, g, ties=False)
+            assert same(bops.sort_tiles(x), bref.sort_tiles(x)), (dtype, 1 << lg)
     keys = torch.randint(0, 50, (8, 16384), device="cuda", generator=g).int()
     for vals in (torch.arange(8 * 16384, device="cuda").reshape(8, 16384),
                  torch.arange(8 * 16384, device="cuda", dtype=torch.int32).reshape(8, 16384),
@@ -270,6 +277,16 @@ def test_kernels_match_plain_on_card():
         k, v = bops.sort_kv_tiles(keys, vals)
         rk, rv = bref.sort_kv_tiles(keys, vals)
         assert same(k, rk) and same(v, rv)
+    # K4 with heavy ties (the values' order is the network's), 2-, 4- and
+    # 8-byte values
+    for dtype in (torch.int32, torch.uint32, torch.float32, torch.bfloat16):
+        for w in (128, 512, 1024, 16384):
+            k = _card_tile_keys(dtype, 3, w, g, ties=True)
+            for vdt in (torch.int16, torch.int32, torch.int64):
+                v = torch.randperm(3 * w, device="cuda", generator=g).reshape(3, w).to(vdt)
+                gk, gv = bops.sort_kv_tiles(k, v)
+                rk, rv = bref.sort_kv_tiles(k, v)
+                assert same(gk, rk) and same(gv, rv), (dtype, w, vdt)
     with pytest.raises(TypeError):
         bops.sort_kv_tiles(keys, torch.zeros((8, 16384), device="cuda", dtype=torch.uint8))
     data = torch.sort(torch.randint(0, 500, (8, 1256), device="cuda", generator=g).int(), dim=-1).values
@@ -297,6 +314,31 @@ def test_kernels_match_plain_on_card():
     counts = _build.counts()
     for name in ("bitonic_sort_tiles", "bitonic_sort_kv_tiles", "splitter_ranks", "merge_sorted_tiles"):
         assert counts[name] > 0, name
+
+
+def _card_tile_keys(dtype, rows, w, g, ties):
+    """(rows, w) keys on the card: wide random keys, or heavy ties; float
+    keys get a row of -0.0/+0.0 runs and one of NaNs (both signs), uint32
+    keys run above 2³¹ and hold the sentinel."""
+    if ties:
+        x = torch.randint(0, 50, (rows, w), device="cuda", generator=g)
+        if dtype.is_floating_point:
+            choice = torch.tensor([-0.0, 0.0, 1.5, -2.0, float("nan")], device="cuda")
+            return choice[x % 5].to(dtype)
+        return (x.int() * 100_000_000).view(torch.uint32) if dtype == torch.uint32 else x.int()
+    x = torch.randint(-(2**30), 2**30, (rows, w), device="cuda", generator=g)
+    if dtype == torch.uint32:
+        x = x.int() * 2
+        x[0, :5] = -1  # the uint32 sentinel
+        return x.view(torch.uint32)
+    if not dtype.is_floating_point:
+        return x.int()
+    x = x.float()
+    x[0, : w // 3] = -0.0
+    x[0, w // 6 : w // 2] = 0.0
+    x[1, ::7] = float("nan")
+    x[1, 3::11] = -float("nan")
+    return x.to(dtype)
 
 
 def _rank_merge_edges_on_card(g):
