@@ -17,7 +17,9 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      for 2-, 4- and 8-byte values under every key dtype with
                      heavy ties, at widths 128, 512, 1024 and 16384; K2
                      tagged ranks; K3 merge-path merge, also on float
-                     windows with ±0.0 and NaN; at the paths' shapes.
+                     windows with ±0.0 and NaN; K2 and K3 on int64 rows
+                     (extremes, sentinel tails, broadcast and unsorted
+                     query rows, clipped widths); at the paths' shapes.
                      Times by CUDA events (warmed, median of repeats) and
                      profiler device time, beside the kernel's bound, its
                      plain version's time (on every row, or on the
@@ -26,7 +28,10 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 4. ``small_parity``— whole sorts on the card against the plain path on the
                      CPU at p=8, n_per_proc=512, byte-identical: det, iran,
                      ran, [BSI], the bitonic sample sort, float keys with
-                     ±0.0 and NaN, uint32 and bfloat16 keys.
+                     ±0.0 and NaN, uint32 and bfloat16 keys (NaNs too),
+                     [DSR], [RSR], ``route="radix"`` (int64 and float keys
+                     included), the ring under both exchange modes, and the
+                     segmented sort (keys, orders and tiers).
 5. ``main_path``   — SORT_DET_BSP through ``bsp_sort_safe`` at the
                      full-width configuration, the paper's largest point:
                      n = 2^23 int32 keys on p = 128 simulated processors,
@@ -42,14 +47,33 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      bfloat16 keys (K1 must launch on them) and uint32 keys.
 8. ``sort_kv_path``— the key-value tile sort ``kernels.bitonic.ops.sort_kv``
                      as a caller would use it, rows of 16384: K4 must launch.
-9. ``profile``     — per full-width run: prepare and per-rung route times by
-                     CUDA events, the median wall of five warm sorts; the
-                     device's busy share and its top operations under
-                     ``torch.profiler``.
+9. ``radix_path``  — at the same full width: the paper's [DSR] and [RSR]
+                     (``local_sort="radix"``) on U, key-only (K3 must
+                     launch) and [DSR] with a payload (K2 must launch); then
+                     ``route="radix"`` on each mix of the reference's radix
+                     benchmark (dense_int, expert_id, U, zipf_skew, U64 as
+                     int64): one "radix" rung, no retry, and U64 must launch
+                     the int64 K3.
+10. ``ring_path``  — SORT_DET_BSP with ``routing="ring"`` (127 rotations)
+                     under both exchange modes, and with a payload.
+11. ``segmented_path`` — 256 ragged int32 requests (one of a single key, one
+                     of over 2^20; 2^23 keys in all) fused into one int64
+                     composite sort at p = 128, striped and contiguous under
+                     the default config, and striped under the tree merge on
+                     the kernels (the int64 K2 must launch); every segment's
+                     keys and stable argsort checked.
+12. ``profile``    — per full-width run of phases 5 and 7: prepare and
+                     per-rung route times by CUDA events, the median wall of
+                     five warm sorts; the device's busy share and its top
+                     operations under ``torch.profiler``. Phases 9–11 give the
+                     same wall, busy and idle numbers per run, with its peak
+                     memory, on their own lines.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7 and 8, each counted from zero just before the phase and read just after),
+7, 8, 9, 10 and 11, each counted from zero just before the phase's checked
+runs and read just after; the int64 routes of K2 and K3 are listed and
+counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result.
@@ -75,7 +99,11 @@ SLICE = dict(
     pair_capacity="whp",
 )
 IRAN = dict(SLICE, algorithm="iran")
+RADIX = dict(route="radix", local_sort="bitonic", merge="tree", merge_backend="pallas",
+             pair_capacity="exact")
+RADIX_MIXES = ("dense_int", "expert_id", "U", "zipf_skew", "U64")
 INT_MIN = -(2**31)
+I64_MIN, I64_MAX = -(2**63), 2**63 - 1
 
 
 def key_dtypes(torch):
@@ -254,8 +282,133 @@ def phase_kernels(torch, mods):
     entries["K4"] = kernels_k4(torch, bops, bref, gen, details)
     entries["K2"] = kernels_k2(torch, sops, sref, gen, details)
     entries["K3"] = kernels_k3(torch, mops, mref, gen, details)
+    entries["K2_int64"] = kernels_k2_int64(torch, sops, sref, gen, details)
+    entries["K3_int64"] = kernels_k3_int64(torch, mops, mref, gen, details)
+    # the int64 rows cache tens of GiB of blocks in the allocator; hand them
+    # back, or the path phases' first allocations pay for freeing them
+    torch.cuda.empty_cache()
     emit({"phase": "kernels", "ok": True, "details": details})
     return entries
+
+
+def int64_runs(torch, rows, width, gen, valid=None):
+    """Sorted int64 (rows, width) runs over the whole range, the extremes
+    and ties included, then the sentinel: ``valid`` keys a run (about;
+    default a random count in [0, width])."""
+    x = torch.randint(-(2**62), 2**62, (rows, width), device="cuda", generator=gen) * 2
+    x[0, :3] = I64_MIN
+    x[-1, -2:] = I64_MAX
+    x[:, 5:9] = x[:, 4:5]
+    if valid is None:
+        keep = torch.randint(0, width + 1, (rows, 1), device="cuda", generator=gen)
+    else:
+        keep = torch.randint(valid - 64, valid + 65, (rows, 1), device="cuda", generator=gen)
+    x = torch.where(torch.arange(width, device="cuda") < keep, x, I64_MAX)
+    return torch.sort(x, dim=-1).values.contiguous()
+
+
+def kernels_k2_int64(torch, sops, sref, gen, details):
+    """K2 on int64 keys (the segmented sort's composites): the merge tail's
+    two round-1 calls at the whp shape and at the exact tier's (the
+    segmented sort's default), and each route's edges — unsorted queries,
+    the broadcast query row (stride 0), rows of 79 008, tagged splitters,
+    the int64 extremes, sentinel tails."""
+    errs = []
+
+    def check(got, data, q, side, rows, what):
+        errs.append(max_abs_err(torch, got[:rows], rank_in_plain(torch, sref, data, q, side, rows),
+                                "kernels", f"K2 int64 {what} {side}"))
+
+    summary = None
+    for rows, w, plain_rows in ((8192, 1256, 8192), (8192, 65536, 2)):
+        ka = int64_runs(torch, rows, w, gen, valid=512)
+        kb = int64_runs(torch, rows, w, gen, valid=512)
+        cb = (kb != I64_MAX).sum(dim=1).int()
+        ca = (ka != I64_MAX).sum(dim=1).int()
+        ra = torch.minimum(sops.rank_in(kb, ka, side="left"), cb[:, None])
+        ia = torch.arange(w, dtype=torch.int32, device="cuda")
+        pos_a = torch.where(ia < ca[:, None], ia + ra, 2 * w + ia).contiguous()
+        o = torch.arange(2 * w, dtype=torch.int32, device="cuda").expand(rows, 2 * w)
+        for what, data, q, side in ((f"call 1 {rows}x{w}: ka in kb", kb, ka, "left"),
+                                    (f"call 2 {rows}x{w}: arange(2w) in pos_a (int32)", pos_a, o, "right")):
+            got = sops.rank_in(data, q, side=side)
+            check(got, data, q, side, min(plain_rows, 64), what)
+            if data.dtype != torch.int64:
+                continue
+            B, n = data.shape
+            S = q.shape[1]
+            b_ms, b_by = bound(B * n * 8 + B * S * 8 + B * S * 4, B * (n + S))
+            lib = library_timed(torch, lambda: torch.searchsorted(data, q, side=side, out_int32=True))
+            d = dict(kernel="K2 int64", call=what, side=side, shape=[B, n], queries=S,
+                     **timed(torch, lambda: sops.rank_in(data, q, side=side)), bound_ms=b_ms, bound_by=b_by,
+                     plain_ms=time_ms(torch, lambda: rank_in_plain(torch, sref, data, q, side, plain_rows),
+                                      target_ms=1),
+                     plain_rows=plain_rows, library_ms=lib["ms"], library_device_ms=lib["device_ms"])
+            details.append(d)
+            summary = summary or d
+    # unsorted queries, long rows, the int64 extremes as queries
+    for rows, n, s in ((1024, 1256, 2512), (4, 79008, 79008)):
+        data = int64_runs(torch, rows, n, gen)
+        q = int64_runs(torch, rows, s, gen)
+        q_rand = q[:, torch.randperm(s, device="cuda", generator=gen)].contiguous()
+        q_rand[:, :2] = torch.tensor([I64_MIN, I64_MAX], device="cuda")
+        for kind, qq in (("sorted", q), ("random", q_rand)):
+            for side in ("left", "right"):
+                got = sops.rank_in(data, qq, side=side)
+                check(got, data, qq, side, 4, f"{rows}x{n} {kind} queries")
+                if not torch.equal(got, torch.searchsorted(data, qq, side=side, out_int32=True)):
+                    fail("kernels", f"K2 int64 {rows}x{n} {kind} {side}: differs from torch.searchsorted")
+    # tagged splitters on int64 keys with ties
+    x = int64_runs(torch, 1024, 1256, gen, valid=1256)
+    keys = x.gather(1, torch.randint(0, 1256, (1024, 300), device="cuda", generator=gen))
+    procs = torch.randint(0, 128, (1024, 300), device="cuda", generator=gen).int()
+    idx = torch.randint(0, 1256, (1024, 300), device="cuda", generator=gen).int()
+    me = torch.randint(0, 128, (1024,), device="cuda", generator=gen).int()
+    errs.append(max_abs_err(torch, sops.splitter_ranks(x, keys, procs, idx, me), sref.ranks(x, keys, procs, idx, me),
+                            "kernels", "K2 int64 tagged"))
+    return dict(ms=summary["ms"], plain_ms=summary["plain_ms"], bound_ms=summary["bound_ms"],
+                bound_by=summary["bound_by"], library_ms=summary["library_ms"], max_abs_err=max(errs))
+
+
+def kernels_k3_int64(torch, mops, mref, gen, details):
+    """K3's integer route on int64 keys: whp-shaped rounds 1-2, the exact
+    round clipped to n_max, clipped widths no multiple of a span, W = 1,
+    one side all sentinel; the int64 extremes and ties throughout."""
+    errs = []
+
+    def check(a, b, out_w, plain_rows, what):
+        got = mops.merge_partitioned(a, b, width=out_w)
+        tile = min(mops.TILE, mops._pow2_at_least(a.shape[1]))
+        ap, bp = a[:plain_rows].contiguous(), b[:plain_rows].contiguous()
+        errs.append(max_abs_err(torch, got[:plain_rows], mref.merge_windows(ap, bp, tile, out_w),
+                                "kernels", f"K3 int64 {what}"))
+        return tile, ap, bp
+
+    summary = None
+    for what, rows, w, out_w, plain_rows in (("whp round 1", 8192, 1256, 2512, 8192),
+                                             ("whp round 2", 4096, 2512, 5024, 4096),
+                                             ("exact round", 8192, 65536, 79008, 32)):
+        a = int64_runs(torch, rows, w, gen)
+        b = int64_runs(torch, rows, w, gen)
+        tile, ap, bp = check(a, b, out_w, plain_rows, what)
+        b_ms, b_by = bound(rows * (min(2 * w, out_w) + out_w) * 8, rows * out_w)
+        lib = library_timed(torch, lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1))
+        d = dict(kernel="K3 int64", round=what, shape=[rows, w], out_width=out_w,
+                 **timed(torch, lambda: mops.merge_partitioned(a, b, width=out_w)),
+                 bound_ms=b_ms, bound_by=b_by, plain_rows=plain_rows,
+                 plain_ms=time_ms(torch, lambda: mref.merge_windows(ap, bp, tile, out_w), target_ms=1),
+                 library_ms=lib["ms"], library_device_ms=lib["device_ms"])
+        details.append(d)
+        summary = summary or d
+    for what, rows, w, out_w in (("clipped 2000", 512, 1256, 2000), ("clipped 5001", 256, 3000, 5001),
+                                 ("W = 1", 1000, 1, 2), ("W = 1 clipped", 1000, 1, 1)):
+        check(int64_runs(torch, rows, w, gen), int64_runs(torch, rows, w, gen), out_w, rows, what)
+    a = int64_runs(torch, 1024, 1256, gen)
+    sent = torch.full_like(a, I64_MAX)
+    check(a, sent, 2512, 1024, "b all sentinel")
+    check(sent, a, 2000, 1024, "a all sentinel, clipped")
+    return dict(ms=summary["ms"], plain_ms=summary["plain_ms"], bound_ms=summary["bound_ms"],
+                bound_by=summary["bound_by"], library_ms=summary["library_ms"], max_abs_err=max(errs))
 
 
 def tile_keys(torch, dtype, rows, w, gen, ties=False):
@@ -571,10 +724,14 @@ def parity_input(torch, core, dist, dtype):
     """(8, 512) keys of one distribution, as a CPU tensor of ``dtype``."""
     import numpy as np
 
-    if dist in ("signed_zeros", "nans"):
+    if dist in ("signed_zeros", "nans", "cast"):
         rng = np.random.default_rng(0)
-        choice = [-0.0, 0.0, 2.0] if dist == "signed_zeros" else [np.nan, -np.nan, 1.0, -1.0, 0.5]
-        return torch.from_numpy(np.asarray(choice, np.float32)[rng.integers(0, len(choice), (8, 512))])
+        choice = {"signed_zeros": [-0.0, 0.0, 2.0], "nans": [np.nan, -np.nan, 1.0, -1.0, 0.5],
+                  "cast": [-0.0, 0.0, np.nan, np.inf, -np.inf, 3.7, -1.5, 5e9, -3e9, 7e4]}[dist]
+        x = np.asarray(choice, np.float32)[rng.integers(0, len(choice), (8, 512))]
+        return torch.from_numpy(x).to(dtype)
+    if dist in RADIX_MIXES:
+        return torch.from_numpy(radix_mix(core, dist, 8, 512))
     x = torch.from_numpy(adversarial(8, 512) if dist == "adversarial" else core.datagen.generate(dist, 8, 512))
     if dtype == torch.uint32:
         return (x * 7919 - 2**30).view(torch.uint32)  # keys above 2^31 too
@@ -596,7 +753,46 @@ PARITY_CASES = (
     ("det float32 NaN", SLICE, "nans", "float32", 0),
     ("det uint32", SLICE, "U", "uint32", 0),
     ("det bfloat16", SLICE, "U", "bfloat16", 0),
+    ("det bfloat16 NaN", SLICE, "nans", "bfloat16", 0),
+    ("[DSR] U+payload", dict(SLICE, local_sort="radix"), "U", "int32", 1),
+    ("[DSR] DD", dict(SLICE, local_sort="radix"), "DD", "int32", 0),
+    ("[RSR] U+payload", dict(IRAN, local_sort="radix"), "U", "int32", 1),
+    ("radix route dense_int", RADIX, "dense_int", "int32", 0),
+    ("radix route expert_id+payload", RADIX, "expert_id", "int32", 1),
+    ("radix route zipf_skew", RADIX, "zipf_skew", "int32", 0),
+    ("radix route U64", RADIX, "U64", "int64", 0),
+    ("radix route U64+payload", RADIX, "U64", "int64", 1),
+    ("radix route float32 cast", RADIX, "cast", "float32", 0),
+    ("radix route bfloat16 cast", RADIX, "cast", "bfloat16", 0),
+    ("ring fused+payload", dict(SLICE, routing="ring"), "U", "int32", 1),
+    ("ring per_array DD", dict(SLICE, routing="ring", exchange="per_array"), "DD", "int32", 0),
+    ("iran ring per_array+payload", dict(IRAN, routing="ring", exchange="per_array"), "U", "int32", 1),
 )
+
+#: (name, layout, overrides) of the segmented sort's card/CPU parity
+SEGMENTED_PARITY = (
+    ("segmented striped", "striped", {}),
+    ("segmented contiguous", "contiguous", {}),
+    ("segmented striped tree pallas", "striped", dict(merge="tree", merge_backend="pallas")),
+    ("segmented one request", "contiguous", {}),
+)
+
+
+def radix_mix(core, name, p, n_p):
+    """The mixes of the reference's radix benchmark (``benchmarks/tables.py``)."""
+    import numpy as np
+
+    if name == "dense_int":
+        return core.datagen.dense_int(p, n_p, seed=21, domain=4 * p)
+    if name == "expert_id":
+        return core.datagen.dense_int(p, n_p, seed=22, domain=p)
+    if name == "U":
+        return core.datagen.generate("U", p, n_p, seed=21)
+    if name == "zipf_skew":
+        return core.datagen.generate("zipf", p, n_p, seed=21)
+    x = np.random.default_rng(21).integers(-(2**62), 2**62, (p, n_p), dtype=np.int64)
+    x[0, :2] = (I64_MIN, I64_MAX)
+    return x
 
 
 def phase_small_parity(torch, core):
@@ -613,7 +809,20 @@ def phase_small_parity(torch, core):
                 and all(torch.equal(g.cpu(), c) for g, c in zip(gvals, cvals)))
         if not same:
             fail("small_parity", f"{name}: card and CPU results differ")
-    emit({"phase": "small_parity", "ok": True, "cases": [c[0] for c in PARITY_CASES]})
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    batch = [rng.integers(-1000, 1000, n).astype(np.int32) for n in (1, 300, 2000, 77, 1500, 5)]
+    for name, layout, overrides in SEGMENTED_PARITY:
+        arrs = batch[2:3] if name == "segmented one request" else batch
+        g = core.sort_segments(arrs, p=8, layout=layout, **overrides)
+        c = core.sort_segments(arrs, p=8, layout=layout, device="cpu", **overrides)
+        same = (g.tier == c.tier and g.stats.as_row() == c.stats.as_row()
+                and all(torch.equal(a.cpu(), b) for a, b in zip(g.keys + g.order, c.keys + c.order)))
+        if not same:
+            fail("small_parity", f"{name}: card and CPU results differ")
+    emit({"phase": "small_parity", "ok": True,
+          "cases": [c[0] for c in PARITY_CASES] + [c[0] for c in SEGMENTED_PARITY]})
 
 
 def run_sort(torch, core, x, vals, cfg):
@@ -624,7 +833,8 @@ def run_sort(torch, core, x, vals, cfg):
     return time.perf_counter() - t0, res, pvals, stats
 
 
-KERNEL_NAMES = ("bitonic_sort_tiles", "splitter_ranks", "merge_sorted_tiles", "bitonic_sort_kv_tiles")
+KERNEL_NAMES = ("bitonic_sort_tiles", "splitter_ranks", "merge_sorted_tiles", "bitonic_sort_kv_tiles",
+                "splitter_ranks_int64", "merge_sorted_tiles_int64")
 
 
 def full_width_runs(torch, core, cfg, phase):
@@ -707,7 +917,7 @@ def phase_sort_kv_path(torch, bops, build):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = build.counts()
-    require_launched(launches, KERNEL_NAMES[3:], "sort_kv_path", "sort_kv")
+    require_launched(launches, KERNEL_NAMES[3:4], "sort_kv_path", "sort_kv")
     for k, v, x, xv in ((ko, vo, keys, vals), (k1[None], v1[None], keys[:1, :10000], vals[:1, :10000])):
         if not torch.equal(k, torch.sort(x, dim=-1).values):
             fail("sort_kv_path", "keys are not sorted")
@@ -717,6 +927,157 @@ def phase_sort_kv_path(torch, bops, build):
             fail("sort_kv_path", "values are not a permutation of the input's")
     emit({"phase": "sort_kv_path", "ok": True, "shape": list(keys.shape), "wall_s": wall,
           "launches": launches})
+    return launches
+
+
+def where_time_goes(torch, fn, reps: int = 5) -> dict:
+    """A run's wall (median of ``reps`` warm calls, host clock around work
+    ending in a sync), its device busy time under ``torch.profiler``, the
+    idle share 1 - busy / wall, and its top device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((ms, k, c) for k, (ms, c) in device_split(torch, prof).items()), reverse=True)
+    busy = sum(r[0] for r in rows)
+    return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall),
+                top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:6]])
+
+
+def checked_runs(torch, core, build, phase, specs):
+    """Each spec ``(name, overrides, x, payloads, kernels)`` through
+    ``bsp_sort_safe`` at full width, first call and warm, checked against
+    ``torch.sort``; each named kernel must launch on its runs. Returns the
+    rows and the launches of these runs; then, not counted, each run's
+    wall, busy time and idle share."""
+    rows = []
+    build.reset_counts()
+    for name, overrides, x, nv, kernels in specs:
+        cfg = core.SortConfig(p=x.shape[0], n_per_proc=x.shape[1], **overrides)
+        vals = [torch.arange(cfg.n, dtype=torch.int32, device="cuda").reshape(x.shape)][:nv]
+        before = build.counts()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(2):  # first call, then a warm one
+            wall, res, pvals, stats = run_sort(torch, core, x, vals, cfg)
+            walls.append(wall)
+            walked = check_sort(torch, core, x, vals, res, pvals, stats, phase, name)
+        after = build.counts()
+        for k in kernels:
+            if after.get(k, 0) <= before.get(k, 0):
+                fail(phase, f"{name}: kernel {k} was not launched")
+        if cfg.route == "radix" and (walked != ["radix"] or stats.retries):
+            fail(phase, f"{name}: walked {walked} with {stats.retries} retries, expected one radix rung")
+        rows.append(dict(run=name, dtype=str(x.dtype), payload=bool(nv), tiers=walked, wall_s=walls,
+                         keys_per_s=cfg.n / walls[-1], peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         cfg=cfg, x=x, vals=vals))
+    launches = build.counts()
+    for r in rows:
+        cfg, x, vals = r.pop("cfg"), r.pop("x"), r.pop("vals")
+        r.update(where_time_goes(torch, lambda: core.bsp_sort_safe(x, cfg, values=vals)))
+    torch.cuda.empty_cache()  # as after the kernels phase
+    return rows, launches
+
+
+def phase_radix_path(torch, core, build):
+    """[DSR]/[RSR] and ``route="radix"`` on the radix benchmark's mixes."""
+    p, n_p = FULL["p"], FULL["n_per_proc"]
+    u = torch.from_numpy(core.datagen.generate("U", p, n_p)).cuda()
+    specs = [("[DSR] U", dict(SLICE, local_sort="radix"), u, 0, ["merge_sorted_tiles"]),
+             ("[RSR] U", dict(IRAN, local_sort="radix"), u, 0, ["merge_sorted_tiles"]),
+             ("[DSR] U+payload", dict(SLICE, local_sort="radix"), u, 1, ["splitter_ranks"])]
+    for mix in RADIX_MIXES:
+        x = torch.from_numpy(radix_mix(core, mix, p, n_p)).cuda()
+        k3 = "merge_sorted_tiles_int64" if x.dtype == torch.int64 else "merge_sorted_tiles"
+        specs.append((f"radix route {mix}", RADIX, x, 0, ["bitonic_sort_tiles", k3] if mix != "U64" else [k3]))
+    rows, launches = checked_runs(torch, core, build, "radix_path", specs)
+    emit({"phase": "radix_path", "ok": True, "full": FULL, "runs": rows, "launches": launches})
+    return launches
+
+
+def phase_ring_path(torch, core, build):
+    """SORT_DET_BSP with the ring schedule: 127 rotation supersteps."""
+    u = torch.from_numpy(core.datagen.generate("U", FULL["p"], FULL["n_per_proc"])).cuda()
+    specs = [("det U ring fused", dict(SLICE, routing="ring"), u, 0, ["bitonic_sort_tiles"]),
+             ("det U ring per_array", dict(SLICE, routing="ring", exchange="per_array"), u, 0,
+              ["bitonic_sort_tiles"]),
+             ("det U+payload ring fused", dict(SLICE, routing="ring"), u, 1, [])]
+    rows, launches = checked_runs(torch, core, build, "ring_path", specs)
+    emit({"phase": "ring_path", "ok": True, "full": FULL, "runs": rows, "launches": launches})
+    return launches
+
+
+def segmented_batch(core):
+    """256 ragged int32 requests, 2^23 keys in all: heavy-tailed sizes with
+    one request of a single key and one of at least 2^20."""
+    import numpy as np
+
+    sizes = core.datagen.zipf_sizes(256, 2**23, seed=5)
+    lo, hi = int(np.argmin(sizes)), int(np.argmax(sizes))
+    sizes[hi] += sizes[lo] - 1
+    sizes[lo] = 1
+    if sizes.max() < 2**20 or sizes.sum() != 2**23:
+        fail("segmented_path", f"size draw out of spec: max {sizes.max()}, sum {sizes.sum()}")
+    keys = np.random.default_rng(6).integers(-(2**31), 2**31, 2**23, dtype=np.int64).astype(np.int32)
+    keys[:1000] = 7  # ties in the first requests
+    return np.split(keys, np.cumsum(sizes)[:-1])
+
+
+def check_segments(torch, arrays, res, what):
+    for r, a in enumerate(arrays):
+        want = torch.sort(torch.from_numpy(a).cuda(), stable=True)
+        if not torch.equal(res.keys[r], want.values):
+            fail("segmented_path", f"{what}: segment {r} keys are not its sort")
+        if not torch.equal(res.order[r].long(), want.indices):
+            fail("segmented_path", f"{what}: segment {r} order is not its stable argsort")
+
+
+def phase_segmented_path(torch, core, build):
+    arrays = segmented_batch(core)
+    p = FULL["p"]
+    packed = {layout: core.pack_segments(arrays, p, layout=layout) for layout in ("striped", "contiguous")}
+    specs = (("striped default", "striped", {}, []),
+             ("contiguous default", "contiguous", {}, []),
+             ("striped tree pallas", "striped", dict(merge="tree", merge_backend="pallas"),
+              ["splitter_ranks_int64"]))
+    build.reset_counts()
+    rows = []
+    for name, layout, overrides, kernels in specs:
+        before = build.counts()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = core.segmented_sort_safe(packed[layout], **overrides)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            check_segments(torch, arrays, res, name)
+        after = build.counts()
+        for k in kernels:
+            if after.get(k, 0) <= before.get(k, 0):
+                fail("segmented_path", f"{name}: kernel {k} was not launched")
+        rows.append(dict(run=name, n_per_proc=packed[layout].n_per_proc, tier=res.tier,
+                         row=res.stats.as_row(), wall_s=walls, keys_per_s=2**23 / walls[-1],
+                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, overrides=overrides,
+                         layout=layout))
+    launches = build.counts()
+    for r in rows:
+        pk, ov = packed[r.pop("layout")], r.pop("overrides")
+        r.update(where_time_goes(torch, lambda: core.segmented_sort_safe(pk, **ov)))
+    torch.cuda.empty_cache()  # 48 GiB of exact-tier blocks
+    sizes = [len(a) for a in arrays]
+    emit({"phase": "segmented_path", "ok": True, "p": p, "requests": len(arrays), "keys": sum(sizes),
+          "size_min": min(sizes), "size_max": max(sizes), "runs": rows, "launches": launches})
     return launches
 
 
@@ -802,7 +1163,8 @@ def main() -> int:
     # launches over the path phases, each counted from zero by the phase
     launches = dict.fromkeys(KERNEL_NAMES, 0)
     for counted in (phase_main_path(torch, core, build), phase_iran_path(torch, core, build),
-                    phase_sort_kv_path(torch, bops, build)):
+                    phase_sort_kv_path(torch, bops, build), phase_radix_path(torch, core, build),
+                    phase_ring_path(torch, core, build), phase_segmented_path(torch, core, build)):
         for name in KERNEL_NAMES:
             launches[name] += counted.get(name, 0)
     phase_ladder(torch, core)
@@ -817,6 +1179,10 @@ def main() -> int:
                "src/repro/kernels/merge_path/kernel.py:39"),
         "K4": ("bitonic_sort_kv_tiles", "src/repro_torch/csrc/bitonic_sort.cu",
                "src/repro/kernels/bitonic/kernel.py:125"),
+        "K2_int64": ("splitter_ranks_int64", "src/repro_torch/csrc/splitter_ranks.cu",
+                     "src/repro/kernels/searchsorted/kernel.py:47"),
+        "K3_int64": ("merge_sorted_tiles_int64", "src/repro_torch/csrc/merge_path.cu",
+                     "src/repro/kernels/merge_path/kernel.py:39"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

@@ -1,5 +1,6 @@
 """BSP sorting over p simulated processors: SORT_DET_BSP, SORT_IRAN_BSP,
-SORT_RAN_BSP and [BSI] (``SortConfig.algorithm``).
+SORT_RAN_BSP and [BSI] (``SortConfig.algorithm``), the radix route and the
+radix local sort ([DSR]/[RSR]).
 
 Public API:
     SortConfig, SortResult, PreparedSort — configuration / result types
@@ -10,6 +11,11 @@ Public API:
                                            the capacity ladder
     TierStats                            — per-tier retry counters
     gathered_output                      — valid prefixes concatenated
+    predict, BSPMachine, CRAY_T3D        — the BSP (p, L, g) cost model
+    pack_segments, sort_segments,
+    segmented_sort_safe,
+    segmented_sort_launch                — many ragged requests fused into one
+                                           (segment, key)-tagged sort
     config_from_reference,
     prepared_from_reference              — carry state from the JAX package
     datagen                              — §6.3 benchmark input distributions
@@ -22,14 +28,30 @@ from .api import (
     bsp_sort_safe_launch,
     gathered_output,
 )
+from .bsp import BSPMachine, CRAY_T3D, Prediction, predict, theoretical_max_imbalance
 from .convert import config_from_reference, prepared_from_reference
+from .segmented import (
+    InFlightSegmentedSort,
+    PackedSegments,
+    SegmentedResult,
+    pack_segments,
+    segmented_sort_launch,
+    segmented_sort_safe,
+    sort_segments,
+)
 from .types import PreparedSort, SortConfig, SortResult, sentinel_for
 
 from . import datagen  # noqa: F401
 
 __all__ = [
+    "BSPMachine",
+    "CRAY_T3D",
+    "InFlightSegmentedSort",
     "InFlightSort",
+    "PackedSegments",
+    "Prediction",
     "PreparedSort",
+    "SegmentedResult",
     "SortConfig",
     "SortResult",
     "TierStats",
@@ -39,6 +61,12 @@ __all__ = [
     "config_from_reference",
     "datagen",
     "gathered_output",
+    "pack_segments",
+    "predict",
     "prepared_from_reference",
+    "segmented_sort_launch",
+    "segmented_sort_safe",
     "sentinel_for",
+    "sort_segments",
+    "theoretical_max_imbalance",
 ]

@@ -10,7 +10,12 @@
   overflow flag.
 
 ``algorithm`` is ``det`` (SORT_DET_BSP), ``iran`` (SORT_IRAN_BSP), ``ran``
-(SORT_RAN_BSP) or ``bitonic`` ([BSI]), with ``route="sample"``. The
+(SORT_RAN_BSP) or ``bitonic`` ([BSI]). ``route="radix"`` replaces Ph3–Ph4
+of any of the first three by one counting pass (``core/sort_radix.py``):
+the launch driver reads the counted boundaries once and runs a single
+rung sized to them (:func:`_radix_exact_ladder`), which cannot overflow.
+``local_sort="radix"`` gives the paper's [DSR]/[RSR] and ``routing="ring"``
+the p−1 rotation schedule. The
 randomized sorts draw their sample positions from ``generator``, a CPU
 ``torch.Generator``, the counterpart of the JAX package's ``rng``: every
 rung draws the next positions from it. Without one, rung r draws from a
@@ -35,6 +40,7 @@ from . import primitives as prim
 from .bitonic import sort_bitonic_spmd
 from .sort_det import prepare_det_spmd, route_det_spmd
 from .sort_iran import prepare_iran_spmd, route_iran_spmd
+from .sort_radix import host_send_counts, prepare_radix_spmd, route_radix_spmd
 from .sort_ran import prepare_ran_spmd, route_ran_spmd
 from .splitters import sample_positions
 from .types import PreparedSort, SortConfig, SortResult, resolve_device
@@ -64,14 +70,12 @@ _PIPELINES = {
 _RANDOMIZED = ("iran", "ran")
 
 
-def _check_ported(cfg: SortConfig) -> None:
-    cfg.validate()
-    if cfg.route != "sample":
-        raise NotImplementedError(
-            f"route={cfg.route!r} is not ported yet (see ROADMAP.md, queue 1)"
-        )
-    if cfg.routing == "ring" and cfg.algorithm != "bitonic":
-        raise NotImplementedError("routing='ring' is not ported yet (see ROADMAP.md, queue 1)")
+def _pipeline(cfg: SortConfig):
+    """(prepare, route) of ``cfg``: ``route="radix"`` takes the counting
+    pass whatever the algorithm (it replaces Ph3–Ph4, not Ph2's method)."""
+    if cfg.route == "radix":
+        return prepare_radix_spmd, route_radix_spmd
+    return _PIPELINES[cfg.algorithm]
 
 
 def _inputs(x, values, device) -> Tuple[torch.Tensor, List[torch.Tensor], torch.dtype]:
@@ -91,7 +95,7 @@ def _config(x: torch.Tensor, cfg: Optional[SortConfig], overrides) -> SortConfig
         cfg = SortConfig(p=p, n_per_proc=n_p, **overrides)
     if (cfg.p, cfg.n_per_proc) != (p, n_p):
         raise ValueError(f"config (p={cfg.p}, n_per_proc={cfg.n_per_proc}) does not match layout {tuple(x.shape)}")
-    _check_ported(cfg)
+    cfg.validate()
     return cfg
 
 
@@ -103,7 +107,7 @@ def _rung_generator(cfg: SortConfig, rung: int, generator: Optional[torch.Genera
 
 
 def _positions(cfg: SortConfig, rung: int, generator, device) -> Optional[torch.Tensor]:
-    if cfg.algorithm not in _RANDOMIZED:
+    if cfg.algorithm not in _RANDOMIZED or cfg.route == "radix":
         return None
     return sample_positions(cfg, _rung_generator(cfg, rung, generator), device)
 
@@ -126,7 +130,7 @@ def bsp_sort(
     """Sort a (p, n_per_proc) array with simulated processors (one tier)."""
     x, values, key_dtype = _inputs(x, values, device)
     cfg = _config(x, cfg, overrides)
-    prepare, route = _PIPELINES[cfg.algorithm]
+    prepare, route = _pipeline(cfg)
     out = route(prepare(x, cfg, values), cfg, _positions(cfg, 0, generator, x.device))
     return _result(*out, key_dtype)
 
@@ -182,6 +186,10 @@ class InFlightSort:
         self._i = 0
         self._pending = run_tier(ladder[0][1], 0)
 
+    def done(self) -> bool:
+        """Whether :meth:`wait` has already resolved (never blocks)."""
+        return self._out is not None
+
     def wait(self) -> Tuple[SortResult, List[torch.Tensor], TierStats]:
         """Block until a rung's overflow flag is clean; escalate on faults."""
         if self._out is not None:
@@ -204,6 +212,35 @@ class InFlightSort:
             self._pending = self._run_tier(self._ladder[self._i][1], self._i)
 
 
+def _radix_exact_ladder(cfg: SortConfig, prep: PreparedSort) -> tuple:
+    """The radix route's whole ladder: ONE rung at the host-counted capacity.
+
+    ``prep.splits[0]`` holds the counted (p, p+1) boundaries, so the true
+    per-(src, dst) maximum and the true receive total are known before any
+    data moves (a (p, p+1) int32 host read). Both are rounded up on a
+    relative 1/16 grid (``step`` = the top four bits of the count) and
+    clamped to the exact-tier sizes; the capacity then covers every pair,
+    so the rung cannot overflow. The JAX package's sizing, unchanged.
+    """
+    sendc = host_send_counts(prep.splits[0])  # counts[src, dst]
+    pair_true = int(sendc.max())
+    recv_true = int(sendc.sum(axis=0).max())
+
+    def _quant(true, hi):
+        step = max(cfg.pad_align, 1 << max(0, true.bit_length() - 4))
+        return min(hi, -(-max(true, 1) // step) * step)
+
+    tier = dataclasses.replace(
+        cfg,
+        pair_capacity="planned",
+        pair_cap_override=_quant(pair_true, cfg.n_per_proc),
+        capacity_factor=1.0,
+        n_max_mode="bound",
+        n_max_override=_quant(recv_true, cfg.n),
+    )
+    return (("radix", tier),)
+
+
 def bsp_sort_safe_launch(
     x,
     cfg: Optional[SortConfig] = None,
@@ -217,14 +254,18 @@ def bsp_sort_safe_launch(
     """Launch an overflow-safe sort: prepare once, enqueue the first rung."""
     x, values, key_dtype = _inputs(x, values, device)
     cfg = _config(x, cfg, overrides)
-    prepare, route = _PIPELINES[cfg.algorithm]
+    prepare, route = _pipeline(cfg)
     prep = prepare(x, cfg, values)
+    ladder = cfg.tier_ladder()
+    if cfg.route == "radix":
+        # the counts are in hand: one rung sized to the true maxima
+        ladder = _radix_exact_ladder(cfg, prep)
 
     def run_tier(tier_cfg: SortConfig, rung: int):
         positions = _positions(tier_cfg, rung, generator, x.device)
         return _result(*route(prep, tier_cfg, positions), key_dtype)
 
-    return InFlightSort(cfg.tier_ladder(), stats, run_tier)
+    return InFlightSort(ladder, stats, run_tier)
 
 
 def bsp_sort_safe(

@@ -42,7 +42,8 @@ def prepared_from_reference(xs, vals: Sequence, splits, device=None) -> Prepared
     """A port ``PreparedSort`` from the reference's arrays (global layout).
 
     xs (p, n_per_proc); vals a sequence of (p, n_per_proc, ...) payloads;
-    splits the det (keys, procs, idxs) splitters, each (p, p-1).
+    splits the det (keys, procs, idxs) splitters, each (p, p-1), or the
+    radix route's counted ``(bounds,)``, (p, p+1).
     """
     dev = resolve_device(device)
     return PreparedSort(

@@ -6,7 +6,11 @@
               sorts of the dtypes it takes (int32, uint32, float32,
               bfloat16); key-value and other dtypes take ``lax``, as in
               the JAX package.
-``radix``   — not ported yet (ROADMAP, queue 1).
+``radix``   — the linear-work LSD counting sort (``core/radix.py``) for
+              integer keys, payloads gathered by its order (the
+              [·SR] variants); float keys take ``lax``, as in the JAX
+              package. uint32 keys arrive biased to int32, which keeps
+              their order.
 """
 from __future__ import annotations
 
@@ -16,16 +20,16 @@ import torch
 
 from ..kernels.bitonic import ops as bitonic_ops
 from .primitives import stable_sort, take_rows
+from .radix import radix_argsort
 
 
 def local_sort(
     x: torch.Tensor, method: str = "lax", values: Sequence[torch.Tensor] = ()
 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Stable sort of (p, n_p) runs along dim 1, carrying payloads (p, n_p, ...)."""
-    if method == "radix":
-        raise NotImplementedError(
-            "local_sort='radix' is not ported yet (see ROADMAP.md, queue 1)"
-        )
+    if method == "radix" and not x.is_floating_point():
+        order = radix_argsort(x)
+        return x.gather(1, order.long()), [take_rows(v, order) for v in values]
     if method == "bitonic" and not values and bitonic_ops.supports(x):
         return bitonic_ops.sort(x), []
     if not values:

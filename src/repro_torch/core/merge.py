@@ -98,7 +98,7 @@ def _rank_merge_two(
     from_a = (A > 0) & (pos_a.gather(1, prev.long()) == o)
     take = torch.where(from_a, prev, torch.clamp(wa + o - A, max=w2 - 1)).long()
     valid = o < (ca + cb)[:, None]
-    out = torch.where(valid, torch.cat([ka, kb], dim=1).gather(1, take), sent)
+    out = torch.where(valid, prim.gather(torch.cat([ka, kb], dim=1), 1, take), sent)
     vout = [
         _mask_rows(valid, take_rows(torch.cat([a_v, b_v], dim=1), take))
         for a_v, b_v in zip(va, vb)

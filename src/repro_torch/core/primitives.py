@@ -9,7 +9,8 @@ the processor as dimension 0 and each collective is a tensor operation:
 * ``pmax`` / ``psum`` — reductions over dimension 0 (``.any()``, ``.sum()``);
 * ``proc_id`` — ``torch.arange(p)``;
 * ``exchange_with`` — the pairwise XOR-partner ``ppermute`` of a bitonic
-  compare-split step, a row permutation.
+  compare-split step, a row permutation;
+* ``ppermute_shift`` — the ring's rotation, a roll along the processors.
 
 The JAX package orders float keys with XLA's sort comparator: ``-0.0``
 equals ``+0.0`` and every NaN is equal and above ``+inf``. :func:`sort_key`
@@ -47,8 +48,37 @@ def exchange_with(x, partner_xor: int):
     return x[perm]
 
 
+def ppermute_shift(x, shift: int = 1):
+    """Row ``k`` receives row ``k - shift`` (mod p): processor i sends to
+    i + shift around the ring. A tuple or list maps elementwise."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(ppermute_shift(v, shift) for v in x)
+    return torch.roll(x, shifts=shift, dims=0)
+
+
 def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.cumsum(x, dim=dim, dtype=x.dtype) - x
+
+
+#: signed integer dtype of each element size, for bit views of float keys
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def gather(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``x.gather(dim, index)``, bit-exact for every dtype: float keys move
+    as integers of their width (the CPU gather rewrites bfloat16 NaNs)."""
+    if not x.is_floating_point():
+        return x.gather(dim, index)
+    return x.view(_BITS[x.element_size()]).gather(dim, index).view(x.dtype)
+
+
+def scatter_(buf: torch.Tensor, dim: int, index: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``buf.scatter_(dim, index, src)``, bit-exact as :func:`gather`."""
+    if not buf.is_floating_point():
+        return buf.scatter_(dim, index, src)
+    bits = _BITS[buf.element_size()]
+    buf.view(bits).scatter_(dim, index, src.view(bits))
+    return buf
 
 
 def lex_sort(operands: Sequence[torch.Tensor], num_keys: int) -> tuple:
@@ -56,10 +86,10 @@ def lex_sort(operands: Sequence[torch.Tensor], num_keys: int) -> tuple:
     compare): stable argsorts of the keys, least significant key first."""
     order = None
     for key in reversed(operands[:num_keys]):
-        k = key if order is None else key.gather(-1, order)
+        k = key if order is None else gather(key, -1, order)
         step = stable_sort(k)[1]
         order = step if order is None else order.gather(-1, step)
-    return tuple(op.gather(-1, order) for op in operands)
+    return tuple(gather(op, -1, order) for op in operands)
 
 
 def lex_less(ka, pa, ia, kb, pb, ib):
@@ -112,7 +142,7 @@ def stable_sort(x: torch.Tensor, dim: int = -1):
     if not x.is_floating_point():
         return tuple(torch.sort(x, dim=dim, stable=True))
     order = torch.sort(sort_key(x), dim=dim, stable=True).indices
-    return x.gather(dim, order), order
+    return gather(x, dim, order), order
 
 
 def searchsorted(

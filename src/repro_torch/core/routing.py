@@ -9,13 +9,17 @@ delivered by one exchange over the leading processor dimension:
   above ``n_max``) and surfaced as the retriable ``overflow`` flag.
 * ``allgather`` — the ladder's terminal tier: every processor sees every
   run and slices its bucket (rows of width n_p); receive buffer n.
-* ``ring`` — not ported yet (ROADMAP, queue 1).
+* ``ring`` — p−1 rotation supersteps of a visitor block (a run, its
+  payloads and its boundary row): exact, the literal BSP superstep
+  structure. Its receive buffer is the tier's ``n_max``; its overflow is
+  a receive total above it.
 
 Under ``exchange="fused"`` the key and payload rows are bitcast to bytes
 and concatenated into one buffer, so a data superstep is one exchange
-whatever the payload count; the bitcast is exact, so the result equals
-``per_array``'s. Received rows are ordered by (source proc, local idx),
-which keeps the final merge stable.
+whatever the payload count (on the ring, the boundary row rides in the
+same buffer); the bitcast is exact, so the result equals ``per_array``'s.
+Received rows are ordered by (source proc, local idx), which keeps the
+final merge stable.
 """
 from __future__ import annotations
 
@@ -53,6 +57,40 @@ def unpack_bytes(buf: torch.Tensor, metas: tuple, lead: int = 2) -> List[torch.T
         off += nb
         out.append(part.view(dtype).reshape(head + tuple(trail)))
     return out
+
+
+def pack_bytes_flat(arrs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, tuple]:
+    """Pack every processor's arrays of any shapes into one flat byte row.
+
+    Arrays share the leading processor dimension; each contributes the
+    rest as a flat byte run, so the ring's visitor block (run, payloads and
+    the (p+1,) boundary row) rotates in ONE exchange per superstep.
+    """
+    return pack_bytes(arrs, lead=1)
+
+
+def unpack_bytes_flat(vec: torch.Tensor, metas: tuple) -> List[torch.Tensor]:
+    """Invert :func:`pack_bytes_flat` (bit-exact)."""
+    return unpack_bytes(vec, metas, lead=1)
+
+
+# ---------------------------------------------- host-side accounting math
+def packed_row_bytes(key_dtype: torch.dtype, value_dtypes: Sequence[torch.dtype] = ()) -> int:
+    """Bytes one routed row carries in the fused exchange (key + payloads)."""
+    return int(sum(torch.empty((), dtype=d).element_size() for d in (key_dtype, *value_dtypes)))
+
+
+def route_supersteps(routing: str, p: int) -> int:
+    """Data supersteps one route stage issues under ``routing``:
+    ``a2a_dense`` the count exchange plus one fused data exchange,
+    ``allgather`` one gather, ``ring`` p−1 rotations."""
+    if routing == "a2a_dense":
+        return 2
+    if routing == "allgather":
+        return 1
+    if routing == "ring":
+        return max(1, p - 1)
+    raise ValueError(f"unknown routing {routing!r}")
 
 
 # ---------------------------------------------------------------- routing
@@ -144,8 +182,6 @@ def recv_rows(
         over = rcounts.sum(dim=1) > cfg.n_max
         return rows, rcounts, over.any().expand(p)
 
-    if cfg.routing == "ring":
-        raise NotImplementedError("routing='ring' is not ported yet (see ROADMAP.md, queue 1)")
     raise ValueError(f"recv_rows: unsupported routing {cfg.routing!r}")
 
 
@@ -172,7 +208,7 @@ def compact_rows(
         fill = key_sentinel if i == 0 else _PAYLOAD_PAD
         buf = torch.full((p, cap + 1) + trail, fill, dtype=r.dtype, device=r.device)
         index = idx.reshape((p, n_src * w) + (1,) * len(trail)).expand((p, n_src * w) + trail)
-        buf.scatter_(1, index, r.reshape((p, n_src * w) + trail))
+        prim.scatter_(buf, 1, index, r.reshape((p, n_src * w) + trail))
         out.append(buf[:, :cap])
     return out
 
@@ -190,6 +226,8 @@ def route(
     """
     sent = sentinel_for(x_sorted.dtype)
     cap = cfg.n_max
+    if cfg.routing == "ring":
+        return _route_ring(x_sorted, boundaries, cfg, values, sent)
     rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
     out = compact_rows(rows, rcounts, cap, sent)
     total = torch.clamp(rcounts.sum(dim=1, dtype=torch.int32), max=cap)
@@ -216,9 +254,10 @@ def route_and_merge(
 
     Every received row is a sorted run (bucket i of a sorted run), which is
     what makes the tree tail valid; it takes the received rows (keys and
-    payloads) straight into :func:`merge.merge_tree`.
+    payloads) straight into :func:`merge.merge_tree`. The ring delivers a
+    compacted buffer, not rows, so it takes the sort tail under either.
     """
-    if cfg.merge == "tree":
+    if cfg.merge == "tree" and cfg.routing != "ring":
         rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
         cap = cfg.n_max
         merged, mvals, count = merge_mod.merge_tree(
@@ -231,3 +270,56 @@ def route_and_merge(
     buf, vbufs, count, overflow = route(x_sorted, boundaries, cfg, values)
     merged, mvals = merge_mod.merge_by_sort(buf, vbufs)
     return merged, mvals, count, overflow
+
+
+def _route_ring(
+    x_sorted: torch.Tensor,
+    boundaries: torch.Tensor,
+    cfg: SortConfig,
+    values: Sequence[torch.Tensor],
+    sent,
+) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """p−1 rotation supersteps; the visitor block is one run + its boundaries.
+
+    Superstep r (r = 0 places every processor's own bucket) places, at
+    processor ``me``, bucket ``me`` of the run that started at processor
+    ``me - r``, at that source's offset in the receive buffer; then every
+    visitor block moves one processor on. Under ``exchange="fused"`` the
+    block (keys, payloads and the boundary row) moves as one byte row.
+    """
+    p, cap = cfg.p, cfg.n_max
+    n_p = x_sorted.shape[1]
+    dev = x_sorted.device
+    me = torch.arange(p, device=dev)
+    arrs = [x_sorted, *values]
+
+    rcounts = recv_counts(send_counts(boundaries))  # (p_me, p_src)
+    offsets = prim.exclusive_cumsum(rcounts, dim=1)
+    total = rcounts.sum(dim=1, dtype=torch.int32)
+    overflow = (total > cap).any().expand(p)
+
+    bufs = [
+        torch.full((p, cap + 1) + a.shape[2:], sent if i == 0 else _PAYLOAD_PAD, dtype=a.dtype, device=dev)
+        for i, a in enumerate(arrs)
+    ]  # column ``cap`` takes what the buffer drops
+    t = torch.arange(n_p, device=dev)
+    vis_arrs, vis_b = list(arrs), boundaries
+    for r in range(p):
+        src = (me - r) % p
+        start = vis_b[me, me]
+        cnt = vis_b[me, me + 1] - start
+        idx = torch.clamp(start[:, None] + t, 0, n_p - 1)
+        valid = t < cnt[:, None]
+        dst = torch.where(valid, offsets[me, src][:, None] + t, cap).clamp(max=cap)
+        for buf, a in zip(bufs, vis_arrs):
+            trail = a.shape[2:]
+            index = dst.reshape(dst.shape + (1,) * len(trail)).expand((p, n_p) + trail)
+            prim.scatter_(buf, 1, index, prim.take_rows(a, idx))
+        if r != p - 1:
+            if cfg.exchange == "fused":
+                vec, metas = pack_bytes_flat(vis_arrs + [vis_b])
+                *vis_arrs, vis_b = unpack_bytes_flat(prim.ppermute_shift(vec, 1), metas)
+            else:
+                vis_arrs = prim.ppermute_shift(vis_arrs, 1)
+                vis_b = prim.ppermute_shift(vis_b, 1)
+    return bufs[0][:, :cap], [b[:, :cap] for b in bufs[1:]], torch.clamp(total, max=cap), overflow

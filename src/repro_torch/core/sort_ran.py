@@ -42,7 +42,7 @@ def route_ran_spmd(
     exact = x.is_floating_point()
     dest = prim.searchsorted(splits.expand(p, p - 1), x, "right", exact)
     dest_sorted, order = prim.stable_sort(dest)
-    xg = x.gather(1, order)
+    xg = prim.gather(x, 1, order)
     vals = [prim.take_rows(v, order) for v in values]
     edges = torch.arange(p + 1, dtype=torch.int32, device=dev).expand(p, p + 1)
     bounds = prim.searchsorted(dest_sorted, edges, "left")

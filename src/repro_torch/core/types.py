@@ -66,14 +66,17 @@ class SortConfig:
     configuration carries across unchanged (``core/convert.py``):
 
     * ``omega`` — oversampling regulator ω_n (det default ⌈lg lg n⌉).
-    * ``local_sort`` — Ph2 method: ``lax`` (stable comparison sort) or
-      ``bitonic`` (the hand-written bitonic tile-sort kernel).
+    * ``route`` — ``sample`` (Ph3 splitters) or ``radix`` (one counting
+      pass gives exact boundaries; a single rung, no retry).
+    * ``local_sort`` — Ph2 method: ``lax`` (stable comparison sort),
+      ``radix`` (LSD counting sort, integer keys) or ``bitonic`` (the
+      hand-written bitonic tile-sort kernel).
     * ``merge`` — Ph6: ``sort`` (stable re-sort) or ``tree`` (lg p rounds of
       stable pairwise rank merges).
     * ``merge_backend`` — Ph6 tree substrate: ``xla`` (plain ranks) or
       ``pallas`` (the rank kernel, and the merge-path kernel for key-only
       pairs). The names are the JAX package's.
-    * ``routing`` — Ph5 schedule: ``a2a_dense`` or ``allgather``.
+    * ``routing`` — Ph5 schedule: ``a2a_dense``, ``allgather`` or ``ring``.
     * ``exchange`` — Ph5 payload packing: ``fused`` or ``per_array``.
     * ``sample_sort`` — Ph3 sample sort: ``gather`` (one replicated
       lexicographic sort) or ``bitonic`` (compare-split over processors).
@@ -277,7 +280,8 @@ class PreparedSort:
     ``xs`` is the stable local sort of every run (Ph2), ``vals`` the
     payloads under the same permutation, and ``splits`` the det Ph3 tagged
     splitters ``(keys, procs, idxs)``, each ``(p, p-1)`` (every processor
-    holds the same replicated copy, as in the JAX package's layout).
+    holds the same replicated copy, as in the JAX package's layout), or
+    the radix route's counted ``(bounds,)``, ``(p, p+1)``.
     """
 
     xs: torch.Tensor  # (p, n_per_proc)

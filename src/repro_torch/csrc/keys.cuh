@@ -9,7 +9,7 @@
 // order.
 //
 // Dtype codes (shared with kernels/_build.py): 0 int32, 1 float32,
-// 2 uint32, 3 bfloat16.
+// 2 uint32, 3 bfloat16, 4 int64.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,6 +31,16 @@ struct KeyI32 {
   static __device__ __forceinline__ bool isnan(T) { return false; }
   static __device__ __forceinline__ T sentinel() { return 0x7fffffff; }
   static __device__ __forceinline__ int32_t order(T a) { return a; }
+};
+
+// int64: the segmented sort's (segment, key) composites and 64-bit keys.
+// No `order`: only the float routes replay the JAX comparator.
+struct KeyI64 {
+  using T = int64_t;
+  static __device__ __forceinline__ bool lt(T a, T b) { return a < b; }
+  static __device__ __forceinline__ bool eq(T a, T b) { return a == b; }
+  static __device__ __forceinline__ bool isnan(T) { return false; }
+  static __device__ __forceinline__ T sentinel() { return 0x7fffffffffffffffLL; }
 };
 
 struct KeyU32 {

@@ -20,11 +20,13 @@
 // Design: the GPU merge path, with no window tensor in device memory and
 // only output columns below out_width written. Two routes, by key type:
 //
-// * int32 keys (uint32 keys arrive biased to int32): two launches. A
+// * int32 and int64 keys (uint32 keys arrive biased to int32; int64 are
+//   the segmented sort's composites and 64-bit keys): two launches. A
 //   partition kernel, one thread per span boundary of every row at once,
 //   binary-searches the merge path's split there (a-elements first on
 //   ties) into an int32 scratch. The merge kernel, one CTA per (row,
-//   span) of 256 threads x an odd count of items (at most 3840 outputs),
+//   span) of 256 threads x an odd count of items (at most 3840 outputs;
+//   60 KiB of shared memory for int64 keys),
 //   stages exactly the span's inputs a[ia:ia'] and b[ib:ib'] in shared
 //   memory by 16-byte cp.async copies; each thread finds its own
 //   sub-diagonal by one search in shared memory, merges its items in
@@ -135,11 +137,11 @@ __global__ void merge_network_kernel(const typename K::T* __restrict__ a,
   for (int t = threadIdx.x; t < tile && t < limit; t += blockDim.x) orow[t] = s[t];
 }
 
-// int32 route, first launch: split[row, k] = the a-elements among the
+// Integer route, first launch: split[row, k] = the a-elements among the
 // first d = min(k * span, out_width) outputs of the row's merge, a first
 // on ties; one thread per boundary k in [0, spans] of every row.
-__global__ void merge_path_split_kernel(const int32_t* __restrict__ a,
-                                        const int32_t* __restrict__ b,
+template <class T>
+__global__ void merge_path_split_kernel(const T* __restrict__ a, const T* __restrict__ b,
                                         int32_t* __restrict__ split, int64_t rows,
                                         int64_t width, int64_t out_width, int span,
                                         int64_t spans) {
@@ -147,8 +149,8 @@ __global__ void merge_path_split_kernel(const int32_t* __restrict__ a,
   if (idx >= rows * (spans + 1)) return;
   const int64_t row = idx / (spans + 1);
   const int64_t d = min64((idx % (spans + 1)) * span, out_width);
-  const int32_t* ar = a + row * width;
-  const int32_t* br = b + row * width;
+  const T* ar = a + row * width;
+  const T* br = b + row * width;
   int64_t lo = max64(0, d - width), hi = min64(d, width);
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
@@ -157,15 +159,18 @@ __global__ void merge_path_split_kernel(const int32_t* __restrict__ a,
   split[idx] = static_cast<int32_t>(lo);
 }
 
-__host__ __device__ __forceinline__ int inputs_bytes(int span) { return round16(span * 4 + 48); }
+__host__ __device__ __forceinline__ int inputs_bytes(int span, int key_bytes) {
+  return round16(span * key_bytes + 48);
+}
 
-// int32 route, second launch: one CTA per (row, span) merges the span's
+// Integer route, second launch: one CTA per (row, span) merges the span's
 // inputs, which the first launch's splits bound, into output columns
 // [d0, d1).
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    merge_path_int_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                          int32_t* __restrict__ out, const int32_t* __restrict__ split,
-                          int64_t width, int64_t out_width, int span, int64_t spans) {
+    merge_path_int_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out,
+                          const int32_t* __restrict__ split, int64_t width, int64_t out_width,
+                          int span, int64_t spans) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int64_t row = blockIdx.x / spans;
   const int64_t k = blockIdx.x % spans;
@@ -177,10 +182,10 @@ __global__ void __launch_bounds__(kThreads)
   const int na = sp[1] - sp[0];
   const int nb = static_cast<int>(d1 - sp[1] - b0);
   const int len = static_cast<int>(d1 - d0);
-  const int32_t* sa = stage(smem, a + row * width + a0, na);
-  const int32_t* sb = stage(align16(sa + na), b + row * width + b0, nb);
-  int32_t* orow = out + row * out_width + d0;
-  int32_t* so = placed<int32_t>(smem + inputs_bytes(span), orow);
+  const T* sa = stage(smem, a + row * width + a0, na);
+  const T* sb = stage(align16(sa + na), b + row * width + b0, nb);
+  T* orow = out + row * out_width + d0;
+  T* so = placed<T>(smem + inputs_bytes(span, sizeof(T)), orow);
   cp_async_wait_all();
   __syncthreads();
   const int items = span / kThreads;
@@ -193,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     int i = lo, j = dd - lo;
     // one past a slice is still inside the buffer; the guards never take it
-    int32_t va = sa[i], vb = sb[j];
+    T va = sa[i], vb = sb[j];
     const int end = min(dd + items, len);
     for (int c = dd; c < end; ++c) {
       if (j >= nb || (i < na && !(vb < va))) {
@@ -209,16 +214,25 @@ __global__ void __launch_bounds__(kThreads)
   store(orow, so, len);
 }
 
-cudaError_t launch_int(const int32_t* a, const int32_t* b, int32_t* out, int32_t* split,
-                       int64_t rows, int64_t width, int64_t out_width, int span, int64_t spans,
+template <class T>
+cudaError_t launch_int(const void* a_, const void* b_, void* out_, int32_t* split, int64_t rows,
+                       int64_t width, int64_t out_width, int span, int64_t spans,
                        cudaStream_t stream) {
+  const T* a = static_cast<const T*>(a_);
+  const T* b = static_cast<const T*>(b_);
+  T* out = static_cast<T*>(out_);
   const int64_t bounds = rows * (spans + 1);
-  merge_path_split_kernel<<<static_cast<unsigned>((bounds + kThreads - 1) / kThreads), kThreads, 0,
-                            stream>>>(a, b, split, rows, width, out_width, span, spans);
+  merge_path_split_kernel<T><<<static_cast<unsigned>((bounds + kThreads - 1) / kThreads), kThreads,
+                               0, stream>>>(a, b, split, rows, width, out_width, span, spans);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int smem = inputs_bytes(span) + span * 4 + 16;
-  merge_path_int_kernel<<<static_cast<unsigned>(rows * spans), kThreads, smem, stream>>>(
+  const int smem = inputs_bytes(span, sizeof(T)) + span * static_cast<int>(sizeof(T)) + 16;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(merge_path_int_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  merge_path_int_kernel<T><<<static_cast<unsigned>(rows * spans), kThreads, smem, stream>>>(
       a, b, out, split, width, out_width, span, spans);
   return cudaGetLastError();
 }
@@ -242,13 +256,13 @@ cudaError_t launch_network(const void* a, const void* b, void* out, int32_t* dia
 }  // namespace
 
 // a, b (rows, width) sorted rows; out (rows, out_width), out_width <=
-// 2 * width. tile: the outputs per span — for int32 keys a multiple of 256
+// 2 * width. tile: the outputs per span — for integer keys a multiple of 256
 // up to 256 * 15 (an odd multiple keeps the staging free of bank
 // conflicts), for float keys the network's window, a power of two in
 // [1, 1024]; spans = ceil(out_width / tile). diag: int32 scratch of
-// rows * (spans + 1) (int32: the splits at the span boundaries) or rows *
-// spans (float: the windows' diagonals). dtype: 0 int32, 1 float32, 3
-// bfloat16. Returns a cudaError_t.
+// rows * (spans + 1) (integers: the splits at the span boundaries) or rows
+// * spans (float: the windows' diagonals). dtype: 0 int32, 1 float32, 3
+// bfloat16, 4 int64. Returns a cudaError_t.
 extern "C" int repro_merge_path(const void* a, const void* b, void* out, void* diag,
                                 int64_t rows, int64_t width, int64_t out_width, int tile,
                                 int dtype, void* stream) {
@@ -256,7 +270,7 @@ extern "C" int repro_merge_path(const void* a, const void* b, void* out, void* d
       tile < 1 || diag == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || out_width == 0) return 0;
-  const bool int_route = dtype == 0;
+  const bool int_route = dtype == 0 || dtype == 4;
   if (int_route ? (tile % kThreads != 0 || tile > kThreads * kMaxItems)
                 : (tile > kMaxTile || (tile & (tile - 1)) != 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -265,10 +279,8 @@ extern "C" int repro_merge_path(const void* a, const void* b, void* out, void* d
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* dg = static_cast<int32_t*>(diag);
   switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_int(static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
-                                         static_cast<int32_t*>(out), dg, rows, width, out_width, tile,
-                                         spans, s));
+    case 0: return static_cast<int>(launch_int<int32_t>(a, b, out, dg, rows, width, out_width, tile, spans, s));
+    case 4: return static_cast<int>(launch_int<int64_t>(a, b, out, dg, rows, width, out_width, tile, spans, s));
     case 1: return static_cast<int>(launch_network<KeyF32>(a, b, out, dg, rows, width, out_width, tile, spans, s));
     case 3: return static_cast<int>(launch_network<KeyBF16>(a, b, out, dg, rows, width, out_width, tile, spans, s));
     default: return static_cast<int>(cudaErrorInvalidValue);

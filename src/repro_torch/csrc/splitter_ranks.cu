@@ -14,6 +14,10 @@
 // pays ~lg n dependent scattered loads per query, and a pass that checks a
 // row's order before the ranks reads every word twice.
 //
+// Keys: int32, float32, bfloat16 and int64 (the segmented sort's
+// composites), one template on the key codec; 8-byte keys double the
+// staged key slices of a tile (up to 80 KiB of shared memory with tags).
+//
 // Design: per row, the route follows the order of its run and its queries.
 // * Run and queries in order (the main path): the merge path. Run and
 //   query row are one merge, cut along its diagonals into tiles of at most
@@ -294,7 +298,8 @@ cudaError_t launch(const void* data, int64_t n, const void* qkey, const int32_t*
 // for one row broadcast over all rows); qproc/qidx laid out as qkey, int32,
 // or NULL (then every query's proc is proc_tag and its idx 0); row_proc
 // (B,) int32 or NULL (then 0); row_flags (B,) int32 scratch; out (B, S)
-// int32. dtype: 0 int32, 1 float32, 3 bfloat16. Returns a cudaError_t.
+// int32. dtype: 0 int32, 1 float32, 3 bfloat16, 4 int64. Returns a
+// cudaError_t.
 extern "C" int repro_splitter_ranks(const void* data, int64_t n, const void* qkey,
                                     const void* qproc, int proc_tag, const void* qidx,
                                     int64_t qstride, const void* row_proc, int64_t S, int64_t B,
@@ -312,6 +317,7 @@ extern "C" int repro_splitter_ranks(const void* data, int64_t n, const void* qke
     case 0: return static_cast<int>(launch<KeyI32>(data, n, qkey, qp, proc_tag, qi, qstride, rp, S, B, flags, o, s));
     case 1: return static_cast<int>(launch<KeyF32>(data, n, qkey, qp, proc_tag, qi, qstride, rp, S, B, flags, o, s));
     case 3: return static_cast<int>(launch<KeyBF16>(data, n, qkey, qp, proc_tag, qi, qstride, rp, S, B, flags, o, s));
+    case 4: return static_cast<int>(launch<KeyI64>(data, n, qkey, qp, proc_tag, qi, qstride, rp, S, B, flags, o, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 )
 
 #: key dtype codes shared with the C entry points (``csrc/*.cu``).
-DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.uint32: 2, torch.bfloat16: 3}
+DTYPE_CODES = {torch.int32: 0, torch.float32: 1, torch.uint32: 2, torch.bfloat16: 3, torch.int64: 4}
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 #: C entry point -> argument types; every entry returns a cudaError_t as int.

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.primitives import bias_unsigned, searchsorted, stable_sort, unbias_unsigned
+from ...core.primitives import bias_unsigned, gather, scatter_, searchsorted, stable_sort, unbias_unsigned
 from ...core.types import sentinel_for
 from .. import _build
 from . import ref
@@ -132,16 +132,16 @@ def _rank_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     pos_a = i + searchsorted(fb, fa, "left", exact).long()
     pos_b = i + searchsorted(fa, fb, "right", exact).long()
     out = torch.empty((fa.shape[0], 2 * m), dtype=a.dtype, device=a.device)
-    out.scatter_(1, pos_a, fa)
-    out.scatter_(1, pos_b, fb)
+    scatter_(out, 1, pos_a, fa)
+    scatter_(out, 1, pos_b, fb)
     return out.reshape(*lead, 2 * m)
 
 
 def _gather(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    """``t.gather(-1, order)`` for any dtype (uint32 by its int32 view)."""
+    """``t.gather(-1, order)`` for any dtype, bit-exact (uint32 by its int32 view)."""
     if t.dtype == torch.uint32:
         return t.view(torch.int32).gather(-1, order).view(torch.uint32)
-    return t.gather(-1, order)
+    return gather(t, -1, order)
 
 
 def sort_kv(keys: torch.Tensor, vals: torch.Tensor):

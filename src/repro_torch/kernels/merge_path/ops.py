@@ -3,13 +3,14 @@
 * :func:`merge_partitioned` — merge of sorted (rows, W) pairs cut into
   output spans, used by the Ph6 rank-merge tail for key-only pairs under
   ``merge_backend="pallas"``. A CUDA tensor launches two kernels: for int32
-  keys a partition kernel splits the merge path at every span boundary and
+  and int64 keys (the latter counted under ``merge_sorted_tiles_int64``)
+  a partition kernel splits the merge path at every span boundary and
   a merge kernel merges each span of :func:`int_span` outputs; for float
   keys a diagonal kernel replays the JAX package's search and the TPU's
   network merges each ``TILE``-wide window. A CPU tensor takes the window
   merge in ``ref.py``. ``width`` produces only the first output columns
   (the merge tree clips every round to the receive bound). Keys are int32,
-  float32 or bfloat16; the bytes equal the JAX package's, ties of
+  float32, bfloat16 or int64; the bytes equal the JAX package's, ties of
   ``-0.0``/``+0.0`` and NaNs included.
 * :func:`merge` — whole-row merge of rows of any two widths: both sides are
   padded with the sentinel to one power-of-two width ≥ 128 and merged.
@@ -27,12 +28,13 @@ from . import ref
 #: output span per window of the float route (power of two ≤ 1024), and
 #: the CPU path's window, as the JAX package's.
 TILE = 1024
-#: int32 route: threads per merge CTA, and the most outputs each merges.
+#: integer route: threads per merge CTA, and the most outputs each merges.
 THREADS, MAX_ITEMS = 256, 15
 
-_KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
+_KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16, torch.int64)
 
 LAUNCHES = _build.counter("merge_sorted_tiles")
+LAUNCHES_INT64 = _build.counter("merge_sorted_tiles_int64")
 
 
 def _pow2_at_least(n: int, floor: int = 128) -> int:
@@ -43,7 +45,7 @@ def _pow2_at_least(n: int, floor: int = 128) -> int:
 
 
 def int_span(out_w: int) -> int:
-    """Outputs per CTA of the int32 route: THREADS x an odd item count (at
+    """Outputs per CTA of the integer route: THREADS x an odd item count (at
     most MAX_ITEMS), as few spans per row as that allows, evened out over
     them. Odd, so each thread's outputs fall in distinct shared-memory
     banks; any span gives the same bytes for integer keys."""
@@ -80,7 +82,7 @@ def merge_partitioned(a: torch.Tensor, b: torch.Tensor, width: Optional[int] = N
         code, _build.stream_handle(),
     )
     _build.check_launch(lib, rc, "merge_sorted_tiles")
-    LAUNCHES.n += 1
+    (LAUNCHES_INT64 if a.dtype == torch.int64 else LAUNCHES).n += 1
     return out
 
 

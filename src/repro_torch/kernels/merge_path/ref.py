@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.primitives import searchsorted
+from ...core.primitives import gather, searchsorted
 from ...core.types import sentinel_for
 from ..bitonic.ref import stage
 
@@ -49,7 +49,7 @@ def merge_windows(a: torch.Tensor, b: torch.Tensor, tile: int, out_width: int) -
     t = torch.arange(tile, device=a.device)
     ga = ia[:, :, None] + t
     gb = ib[:, :, None] + t
-    aw = torch.where(ga < W, a.gather(1, ga.clamp(0, W - 1).reshape(rows, -1)).view_as(ga), sent)
-    bw = torch.where(gb < W, b.gather(1, gb.clamp(0, W - 1).reshape(rows, -1)).view_as(gb), sent)
+    aw = torch.where(ga < W, gather(a, 1, ga.clamp(0, W - 1).reshape(rows, -1)).view_as(ga), sent)
+    bw = torch.where(gb < W, gather(b, 1, gb.clamp(0, W - 1).reshape(rows, -1)).view_as(gb), sent)
     spans = merge_rows(aw.reshape(rows * nt, tile), bw.reshape(rows * nt, tile))[:, :tile]
     return spans.reshape(rows, nt * tile)[:, :out_width]

@@ -13,7 +13,8 @@ package's are vmapped):
 
 :func:`_ranks` is the one dispatch point: a CUDA tensor launches the
 kernel, a CPU tensor takes the plain version in ``ref.py``. Keys are
-int32, float32 or bfloat16. Both count over the n real elements, so no
+int32, float32, bfloat16 or int64 (the segmented sort's composites; their
+launches count under ``splitter_ranks_int64``). Both count over the n real elements, so no
 rank exceeds n. The JAX wrappers pad each run with the sentinel to a block
 multiple and clamp the count to n; a pad counts for a query key equal to
 the sentinel, which changes a rank only on float runs that hold NaNs
@@ -33,9 +34,10 @@ import torch
 from .. import _build
 from . import ref
 
-_KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16)
+_KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16, torch.int64)
 
 LAUNCHES = _build.counter("splitter_ranks")
+LAUNCHES_INT64 = _build.counter("splitter_ranks_int64")
 
 
 def query_row_stride(q: torch.Tensor) -> Optional[int]:
@@ -85,7 +87,7 @@ def _ranks(x, qkey, qproc, proc_tag: int, qidx, me) -> torch.Tensor:
         S, B, out + 4 * B * S, out, code, _build.stream_handle(),
     )
     _build.check_launch(lib, rc, "splitter_ranks")
-    LAUNCHES.n += 1
+    (LAUNCHES_INT64 if x.dtype == torch.int64 else LAUNCHES).n += 1
     return buf[: B * S].view(B, S)
 
 

@@ -11,8 +11,9 @@ def ranks(x, qkey, qproc, qidx, me) -> torch.Tensor:
     """rank[r, q] = #{i : (x[r,i], me[r], i) < (qkey, qproc, qidx)[r, q]}.
 
     The lexicographic masked count of the JAX package's kernel, over the
-    n real elements of each row, in chunks of queries. x (B, n); qkey,
-    qproc, qidx (B, S); me (B,). Returns (B, S) int32.
+    n real elements of each row, in chunks of queries. x (B, n) of any key
+    dtype the kernel takes (int64 included); qkey of x's dtype, qproc, qidx
+    (B, S) int32; me (B,). Returns (B, S) int32.
     """
     B, n = x.shape
     S = qkey.shape[1]

@@ -158,3 +158,14 @@ def test_card_sorts_float_keys_as_the_cpu():
     ref_res, _, _ = bsp_sort_safe(x, config_from_reference(dict(p=P, n_per_proc=NP, **SLICE)),
                                   device="cpu")
     assert torch.equal(res.buf.cpu().view(torch.int32), ref_res.buf.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_values", [0, 1])
+@pytest.mark.parametrize("local_sort,merge,backend", [("lax", "sort", "xla"), ("bitonic", "tree", "pallas")])
+def test_bfloat16_nans_keep_their_bits(local_sort, merge, backend, n_values):
+    """bfloat16 NaNs of both signs pass every gather and scatter with their
+    bits (torch's CPU gather and scatter rewrite them to 0xffff)."""
+    import ml_dtypes
+
+    cfg = dict(local_sort=local_sort, merge=merge, merge_backend=backend, pair_capacity="whp")
+    run_both(float_keys("nans", seed=4).astype(ml_dtypes.bfloat16), cfg, n_values)

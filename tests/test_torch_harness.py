@@ -33,6 +33,17 @@ def reference():
     return repro.core
 
 
+def x64(on: bool = True):
+    """The JAX package's 64-bit scope (int64 keys, the segmented sort's
+    composites); a no-op scope when ``on`` is false."""
+    import contextlib
+
+    reference()
+    import jax
+
+    return jax.experimental.enable_x64() if on else contextlib.nullcontext()
+
+
 def config_fields(cfg) -> dict:
     """A reference ``SortConfig``'s fields as a plain dict."""
     import dataclasses

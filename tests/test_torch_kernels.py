@@ -5,7 +5,8 @@ hold the padding, tiling, clamping and window logic around each kernel,
 and the plain version itself, against the Pallas kernels run in interpret
 mode. The cases are those of ``tests/test_kernels_fast.py`` plus a
 multi-tile K1 row, K1's uint32 and bfloat16 keys, the key-value sort K4,
-and keys whose ties differ in their bits (the networks are not stable).
+keys whose ties differ in their bits (the networks are not stable), and
+K2 and K3 on int64 keys (the reference under its 64-bit scope).
 Tolerance: exact bytes. The kernels themselves run on the card
 (``test_kernels_match_plain_on_card``); K1 and K4's source also runs on the
 CPU in ``test_torch_bitonic_emulated.py``.
@@ -25,7 +26,7 @@ from repro_torch.kernels.merge_path import ops as mops
 from repro_torch.kernels.merge_path import ref as mref
 from repro_torch.kernels.searchsorted import ops as sops
 from repro_torch.kernels.searchsorted import ref as sref
-from test_torch_harness import assert_same, reference
+from test_torch_harness import assert_same, reference, x64
 
 
 def _ref_ops(name: str):
@@ -402,3 +403,120 @@ def _rank_merge_edges_on_card(g):
     for pa, pb in ((a, sent), (sent, a), (same, same.clone())):
         for width in (1000, 1400):
             assert torch.equal(mops.merge_partitioned(pa, pb, width), mref.merge_windows(pa, pb, 1024, width))
+
+
+I64 = np.iinfo(np.int64)
+
+
+def _int64_runs(rows: int, n: int, seed: int, tails: bool = True) -> np.ndarray:
+    """Sorted int64 rows over the whole range, the extremes included, with
+    sentinel (int64 max) tails of random length."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(I64.min, I64.max, (rows, n), dtype=np.int64)
+    x[0, :3] = I64.min
+    x[-1, -2:] = I64.max
+    x[:, 5:9] = x[:, 4:5]  # ties
+    x = np.sort(x, axis=-1)
+    if tails:
+        keep = rng.integers(0, n + 1, (rows, 1))
+        x = np.where(np.arange(n) < keep, x, I64.max)
+    return x
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("n,q", [(256, 256), (1000, 100), (5000, 2048)])
+def test_rank_in_int64_matches_reference(side, n, q):
+    import jax.numpy as jnp
+
+    data = _int64_runs(2, n, 20)
+    queries = np.random.default_rng(21).integers(I64.min, I64.max, (2, q), dtype=np.int64)
+    queries[:, :4] = (I64.min, I64.max, data[0, 7], data[1, n // 2])
+    with x64():
+        ops = _ref_ops("searchsorted")
+        want = np.stack([np.asarray(ops.rank_in(jnp.asarray(d), jnp.asarray(qq), side=side))
+                         for d, qq in zip(data, queries)])
+    assert_same(want, sops.rank_in(torch.from_numpy(data), torch.from_numpy(queries), side=side), "ranks")
+    # the merge tail's broadcast query row (stride 0)
+    o = torch.arange(q, dtype=torch.int64).expand(2, q)
+    pos = np.sort(np.random.default_rng(22).integers(0, 3 * q, (2, n)), axis=-1) + np.arange(n)
+    with x64():
+        want = np.stack([np.asarray(ops.rank_in(jnp.asarray(r), jnp.arange(q, dtype=jnp.int64), side=side))
+                         for r in pos])
+    assert_same(want, sops.rank_in(torch.from_numpy(pos), o, side=side), "broadcast ranks")
+
+
+def test_splitter_ranks_int64_matches_reference():
+    import jax.numpy as jnp
+
+    x = _int64_runs(1, 1000, 23, tails=False)[0]
+    rng = np.random.default_rng(24)
+    sk = x[rng.integers(0, 1000, 31)]
+    sp = rng.integers(0, 8, 31).astype(np.int32)
+    si = rng.integers(0, 1000, 31).astype(np.int32)
+    with x64():
+        want = _ref_ops("searchsorted").splitter_ranks(
+            jnp.asarray(x), jnp.asarray(sk), jnp.asarray(sp), jnp.asarray(si), jnp.asarray(3, jnp.int32)
+        )
+        want = np.asarray(want)
+    got = sops.splitter_ranks(torch.from_numpy(x), torch.from_numpy(sk), torch.from_numpy(sp),
+                              torch.from_numpy(si), 3)
+    assert_same(want, got, "splitter_ranks int64")
+
+
+@pytest.mark.parametrize("w,width", [(100, None), (1500, None), (1500, 1507), (64, 100), (1, 1)])
+def test_merge_partitioned_int64_matches_reference(w, width):
+    import jax.numpy as jnp
+
+    a, b = _int64_runs(3, w, 25), _int64_runs(3, w, 26)
+    b[1] = I64.max  # one side all sentinel
+    with x64():
+        want = np.asarray(_ref_ops("merge_path").merge_partitioned(jnp.asarray(a), jnp.asarray(b)))
+    out_w = 2 * w if width is None else width
+    got = mops.merge_partitioned(torch.from_numpy(a), torch.from_numpy(b), width=width)
+    assert_same(want[:, :out_w], got, "merge_partitioned int64")
+    assert_same(np.sort(np.concatenate([a, b], axis=-1), axis=-1)[:, :out_w], got, "oracle")
+
+
+@pytest.mark.cuda
+def test_int64_kernels_match_plain_on_card():
+    """K2 and K3 on int64 keys equal their plain versions bit for bit (needs
+    the card): rows of one tile and of several, sorted, unsorted and
+    broadcast query rows, tagged splitters, clipped merge widths, the
+    int64 extremes; and the launches count under their int64 names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    _build.reset_counts()
+
+    def plain(data, q, side):
+        tag = torch.full(q.shape, 1 if side == "right" else -1, dtype=torch.int32, device="cuda")
+        zeros = torch.zeros(q.shape, dtype=torch.int32, device="cuda")
+        return sref.ranks(data, q, tag, zeros, torch.zeros(data.shape[0], dtype=torch.int32, device="cuda"))
+
+    g = np.random.default_rng(30)
+    for rows, n, s in ((16, 1256, 2512), (4, 5000, 3000), (2, 79008, 79008)):
+        data = torch.from_numpy(_int64_runs(rows, n, 31)).cuda()
+        q = torch.from_numpy(_int64_runs(rows, s, 32)).cuda()
+        shuffled = q[:, torch.from_numpy(g.permutation(s)).cuda()].contiguous()
+        for side in ("left", "right"):
+            for qq in (q, shuffled):
+                assert torch.equal(sops.rank_in(data, qq, side=side)[:2], plain(data[:2], qq[:2], side))
+    pos = torch.from_numpy(np.sort(g.integers(0, 3000, (8, 1256)), axis=-1) + np.arange(1256)).cuda()
+    o = torch.arange(2512, dtype=torch.int64, device="cuda").expand(8, 2512)
+    for side in ("left", "right"):
+        assert torch.equal(sops.rank_in(pos, o, side=side), plain(pos, o.contiguous(), side))
+    x = torch.from_numpy(_int64_runs(16, 1256, 33, tails=False)).cuda()
+    keys = x.gather(1, torch.from_numpy(g.integers(0, 1256, (16, 300))).cuda())
+    procs = torch.from_numpy(g.integers(0, 8, (16, 300)).astype(np.int32)).cuda()
+    idx = torch.from_numpy(g.integers(0, 1256, (16, 300)).astype(np.int32)).cuda()
+    me = torch.from_numpy(g.integers(0, 8, 16).astype(np.int32)).cuda()
+    assert torch.equal(sops.splitter_ranks(x, keys, procs, idx, me), sref.ranks(x, keys, procs, idx, me))
+    for rows, w, widths in ((64, 1256, (2512, 2000)), (8, 3000, (5001, 6000)), (4, 40000, (79008,)),
+                            (100, 1, (1, 2))):
+        a = torch.from_numpy(_int64_runs(rows, w, 34)).cuda()
+        b = torch.from_numpy(_int64_runs(rows, w, 35)).cuda()
+        tile = min(mops.TILE, mops._pow2_at_least(w))
+        for width in widths:
+            assert torch.equal(mops.merge_partitioned(a, b, width), mref.merge_windows(a, b, tile, width))
+    counts = _build.counts()
+    assert counts["splitter_ranks_int64"] > 0 and counts["merge_sorted_tiles_int64"] > 0
+    assert counts.get("splitter_ranks", 0) == 0 and counts.get("merge_sorted_tiles", 0) == 0
