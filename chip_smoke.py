@@ -19,7 +19,10 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      tagged ranks; K3 merge-path merge, also on float
                      windows with ±0.0 and NaN; K2 and K3 on int64 rows
                      (extremes, sentinel tails, broadcast and unsorted
-                     query rows, clipped widths); at the paths' shapes.
+                     query rows, clipped widths), and K2 int64 on the delta
+                     fold's one long row (2^23 against 2^16); K3's float
+                     route at the merge tail's whp round 1 and exact round;
+                     at the paths' shapes.
                      Times by CUDA events (warmed, median of repeats) and
                      profiler device time, beside the kernel's bound, its
                      plain version's time (on every row, or on the
@@ -28,7 +31,8 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 4. ``small_parity``— whole sorts on the card against the plain path on the
                      CPU at p=8, n_per_proc=512, byte-identical: det, iran,
                      ran, [BSI], the bitonic sample sort, float keys with
-                     ±0.0 and NaN, uint32 and bfloat16 keys (NaNs too),
+                     ±0.0 and NaN, uint32 and bfloat16 keys (NaNs too,
+                     non-canonical ones included),
                      [DSR], [RSR], ``route="radix"`` (int64 and float keys
                      included), the ring under both exchange modes, and the
                      segmented sort (keys, orders and tiers).
@@ -62,18 +66,39 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      the default config, and striped under the tree merge on
                      the kernels (the int64 K2 must launch); every segment's
                      keys and stable argsort checked.
-12. ``profile``    — per full-width run of phases 5 and 7: prepare and
+12. ``obs_path``   — phase 5's det U configuration traced
+                     (``SortConfig(obs=Tracer())``) and untraced: equal bits
+                     out; the route spans' h_words, recv_max and imbalance,
+                     a (g, L) fit over the DD ladder's three rungs, and the
+                     traced and untraced warm walls.
+13. ``planner_path``— phase 11's 256 request sizes with the keys of each of
+                     the planner table's mixes (U, G, B, DD, zipf), each
+                     twice through one ``CapacityPlanner``: fingerprint,
+                     plan, pack with the plan's layout, the segmented sort
+                     with the plan's overrides on the kernels' tree merge,
+                     record; then one single-segment batch of 2^23 int32
+                     keys under ``local_sort="bitonic"``, segmented and
+                     key-only through ``bsp_sort_safe(planner=...)``.
+                     Every segment checked; the int64 K2 must launch on
+                     the fused batches, K1 on the key-only single batch.
+14. ``delta_path`` — a ``SortedView`` of 2^23 int32 keys and a payload on
+                     the kernels folds Δ = 2^16 and Δ = 2^20 (K2 must
+                     launch); ``near_sorted_sort`` of a 2^23 stream with 1%
+                     of its keys displaced equals a cold ``bsp_sort_safe``
+                     of it (the int64 K2 must launch); K2's device time in
+                     each fold.
+15. ``profile``    — per full-width run of phases 5 and 7: prepare and
                      per-rung route times by CUDA events, the median wall of
                      five warm sorts; the device's busy share and its top
-                     operations under ``torch.profiler``. Phases 9–11 give the
+                     operations under ``torch.profiler``. Phases 9–14 give the
                      same wall, busy and idle numbers per run, with its peak
                      memory, on their own lines.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10 and 11, each counted from zero just before the phase's checked
-runs and read just after; the int64 routes of K2 and K3 are listed and
-counted on their own),
+7, 8, 9, 10, 11, 12, 13 and 14, each counted from zero just before the
+phase's checked runs and read just after; the int64 routes of K2 and K3
+and K3's float route are listed and counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result.
@@ -94,6 +119,7 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 
 FULL = dict(p=128, n_per_proc=65536)
+KEYS = FULL["p"] * FULL["n_per_proc"]  # 2^23: the planner and delta paths' batch
 SLICE = dict(
     algorithm="det", local_sort="bitonic", merge="tree", merge_backend="pallas",
     pair_capacity="whp",
@@ -284,6 +310,7 @@ def phase_kernels(torch, mods):
     entries["K3"] = kernels_k3(torch, mops, mref, gen, details)
     entries["K2_int64"] = kernels_k2_int64(torch, sops, sref, gen, details)
     entries["K3_int64"] = kernels_k3_int64(torch, mops, mref, gen, details)
+    entries["K3_float"] = kernels_k3_float(torch, mops, mref, gen, details)
     # the int64 rows cache tens of GiB of blocks in the allocator; hand them
     # back, or the path phases' first allocations pay for freeing them
     torch.cuda.empty_cache()
@@ -366,6 +393,85 @@ def kernels_k2_int64(torch, sops, sref, gen, details):
     me = torch.randint(0, 128, (1024,), device="cuda", generator=gen).int()
     errs.append(max_abs_err(torch, sops.splitter_ranks(x, keys, procs, idx, me), sref.ranks(x, keys, procs, idx, me),
                             "kernels", "K2 int64 tagged"))
+    errs += kernels_k2_delta_row(torch, sops, sref, gen, details)
+    return dict(ms=summary["ms"], plain_ms=summary["plain_ms"], bound_ms=summary["bound_ms"],
+                bound_by=summary["bound_by"], library_ms=summary["library_ms"], max_abs_err=max(errs))
+
+
+def kernels_k2_delta_row(torch, sops, sref, gen, details):
+    """K2 int64 at the delta fold's shape: ONE row, a sorted run of 2^23
+    fold composites against 2^16 sorted queries, and the fold's own call 1
+    (the 2^23-wide kept run ranked in a Δ run of 2^16). Both sides in
+    order, so the row must take the merge path, cut into 4096-item tiles.
+    The plain version (the masked count) runs on the first 64 queries. The
+    long run's bound counts the sectors its 2^16 queries' searches need, not
+    the whole run, as ``torch.searchsorted`` shows it can."""
+    errs = []
+    big = int64_runs(torch, 1, 1 << 23, gen, valid=(1 << 23) - 64)
+    small = int64_runs(torch, 1, 1 << 16, gen, valid=(1 << 16) - 64)
+    for what, data, q in (("one row of 2^23 against 2^16 queries", big, small),
+                          ("fold call 1: 2^23 queries in a run of 2^16", small, big)):
+        got = sops.rank_in(data, q, side="left")
+        qq = q[:, :64].contiguous()
+        errs.append(max_abs_err(torch, got[:, :64], rank_in_plain(torch, sref, data, qq, "left", 1),
+                                "kernels", f"K2 int64 delta {what}"))
+        if not torch.equal(got, torch.searchsorted(data, q, side="left", out_int32=True)):
+            fail("kernels", f"K2 int64 delta {what}: differs from torch.searchsorted")
+        n, S = data.shape[1], q.shape[1]
+        # queries read and ranks written once; of the run, what ranking needs:
+        # for S < n sorted queries, a search of ⌈lg(n/S)⌉ steps between
+        # neighbouring ranks, one 32-byte sector a step (capped at the run)
+        steps = math.ceil(math.log2(n / S)) if S < n else 0
+        run_bytes = min(n * 8, S * steps * 32) if S < n else n * 8
+        b_ms, b_by = bound(run_bytes + S * 8 + S * 4, S * steps if S < n else n + S)
+        lib = library_timed(torch, lambda: torch.searchsorted(data, q, side="left", out_int32=True))
+        details.append(dict(kernel="K2 int64", call=f"delta {what}", side="left", shape=[1, n], queries=S,
+                            **timed(torch, lambda: sops.rank_in(data, q, side="left")), bound_ms=b_ms,
+                            bound_by=b_by,
+                            plain_ms=time_ms(torch, lambda: rank_in_plain(torch, sref, data, qq, "left", 1),
+                                             target_ms=1),
+                            plain_queries=64, library_ms=lib["ms"], library_device_ms=lib["device_ms"]))
+    return errs
+
+
+def kernels_k3_float(torch, mops, mref, gen, details):
+    """K3's float route (diagonals by the replayed search, the TPU's network
+    per 1024-wide window) at the key-only merge tail's shapes: whp round 1
+    and the exact round clipped to n_max, float32, and round 1 in bfloat16;
+    sorted rows with +inf tails, as the tail sees float keys. The plain
+    version runs on ``plain_rows`` rows."""
+    errs = []
+    summary = None
+    for what, dtype, rows, w, out_w, plain_rows in (
+            ("whp round 1", torch.float32, 8192, 1256, 2512, 256),
+            ("exact round", torch.float32, 8192, 65536, 79008, 2),
+            ("whp round 1", torch.bfloat16, 8192, 1256, 2512, 256)):
+        a = sorted_rows(torch, rows, w, torch.int32, gen, True).to(dtype)
+        b = sorted_rows(torch, rows, w, torch.int32, gen, True).to(dtype)
+        a = torch.where(a == float(torch.iinfo(torch.int32).max), float("inf"), a)
+        b = torch.where(b == float(torch.iinfo(torch.int32).max), float("inf"), b)
+        a, b = torch.sort(a, dim=-1).values.contiguous(), torch.sort(b, dim=-1).values.contiguous()
+        got = mops.merge_partitioned(a, b, width=out_w)
+        tile = min(mops.TILE, mops._pow2_at_least(w))
+        ap, bp = a[:plain_rows].contiguous(), b[:plain_rows].contiguous()
+        errs.append(max_abs_err(torch, got[:plain_rows], mref.merge_windows(ap, bp, tile, out_w),
+                                "kernels", f"K3 float {what} {dtype}"))
+        want = torch.sort(torch.cat([a, b], dim=-1), dim=-1, stable=True).values[:, :out_w]
+        if not torch.equal(bits(torch, got), bits(torch, want)):
+            fail("kernels", f"K3 float {what} {dtype}: not the merged rows")
+        # bytes: the inputs that reach the first out_w columns, and the output;
+        # operations: the network's compare-exchanges of every window
+        spans = -(-out_w // tile)
+        b_ms, b_by = bound(rows * (min(2 * w, out_w) + out_w) * a.element_size(),
+                           rows * spans * tile * int(math.log2(2 * tile)))
+        lib = library_timed(torch, lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1, stable=True))
+        d = dict(kernel="K3 float", round=what, dtype=str(dtype), shape=[rows, w], out_width=out_w,
+                 **timed(torch, lambda: mops.merge_partitioned(a, b, width=out_w)),
+                 bound_ms=b_ms, bound_by=b_by, plain_rows=plain_rows,
+                 plain_ms=time_ms(torch, lambda: mref.merge_windows(ap, bp, tile, out_w), target_ms=1),
+                 library_ms=lib["ms"], library_device_ms=lib["device_ms"])
+        details.append(d)
+        summary = summary or d
     return dict(ms=summary["ms"], plain_ms=summary["plain_ms"], bound_ms=summary["bound_ms"],
                 bound_by=summary["bound_by"], library_ms=summary["library_ms"], max_abs_err=max(errs))
 
@@ -724,6 +830,11 @@ def parity_input(torch, core, dist, dtype):
     """(8, 512) keys of one distribution, as a CPU tensor of ``dtype``."""
     import numpy as np
 
+    if dist == "noncanonical_nans":  # every 9th key a 0xffff or 0x7f81 NaN
+        x = torch.from_numpy(core.datagen.generate("G", 8, 512)).to(torch.bfloat16)
+        bits_ = x.view(torch.int16).flatten()
+        bits_[::9] = torch.tensor([-1, 0x7F81], dtype=torch.int16).repeat(bits_[::9].numel())[: bits_[::9].numel()]
+        return bits_.view(torch.bfloat16).reshape(8, 512)
     if dist in ("signed_zeros", "nans", "cast"):
         rng = np.random.default_rng(0)
         choice = {"signed_zeros": [-0.0, 0.0, 2.0], "nans": [np.nan, -np.nan, 1.0, -1.0, 0.5],
@@ -754,6 +865,10 @@ PARITY_CASES = (
     ("det uint32", SLICE, "U", "uint32", 0),
     ("det bfloat16", SLICE, "U", "bfloat16", 0),
     ("det bfloat16 NaN", SLICE, "nans", "bfloat16", 0),
+    ("det bfloat16 non-canonical NaN", SLICE, "noncanonical_nans", "bfloat16", 0),
+    ("det bfloat16 non-canonical NaN+payload, lax", dict(SLICE, local_sort="lax"), "noncanonical_nans",
+     "bfloat16", 1),
+    ("ring bfloat16 non-canonical NaN", dict(SLICE, routing="ring"), "noncanonical_nans", "bfloat16", 0),
     ("[DSR] U+payload", dict(SLICE, local_sort="radix"), "U", "int32", 1),
     ("[DSR] DD", dict(SLICE, local_sort="radix"), "DD", "int32", 0),
     ("[RSR] U+payload", dict(IRAN, local_sort="radix"), "U", "int32", 1),
@@ -825,16 +940,16 @@ def phase_small_parity(torch, core):
           "cases": [c[0] for c in PARITY_CASES] + [c[0] for c in SEGMENTED_PARITY]})
 
 
-def run_sort(torch, core, x, vals, cfg):
+def run_sort(torch, core, x, vals, cfg, **kw):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res, pvals, stats = core.bsp_sort_safe(x, cfg, values=vals)
+    res, pvals, stats = core.bsp_sort_safe(x, cfg, values=vals, **kw)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, res, pvals, stats
 
 
 KERNEL_NAMES = ("bitonic_sort_tiles", "splitter_ranks", "merge_sorted_tiles", "bitonic_sort_kv_tiles",
-                "splitter_ranks_int64", "merge_sorted_tiles_int64")
+                "splitter_ranks_int64", "merge_sorted_tiles_int64", "merge_sorted_tiles_float")
 
 
 def full_width_runs(torch, core, cfg, phase):
@@ -1032,13 +1147,13 @@ def segmented_batch(core):
     return np.split(keys, np.cumsum(sizes)[:-1])
 
 
-def check_segments(torch, arrays, res, what):
+def check_segments(torch, arrays, res, what, phase="segmented_path"):
     for r, a in enumerate(arrays):
         want = torch.sort(torch.from_numpy(a).cuda(), stable=True)
         if not torch.equal(res.keys[r], want.values):
-            fail("segmented_path", f"{what}: segment {r} keys are not its sort")
+            fail(phase, f"{what}: segment {r} keys are not its sort")
         if not torch.equal(res.order[r].long(), want.indices):
-            fail("segmented_path", f"{what}: segment {r} order is not its stable argsort")
+            fail(phase, f"{what}: segment {r} order is not its stable argsort")
 
 
 def phase_segmented_path(torch, core, build):
@@ -1078,6 +1193,279 @@ def phase_segmented_path(torch, core, build):
     sizes = [len(a) for a in arrays]
     emit({"phase": "segmented_path", "ok": True, "p": p, "requests": len(arrays), "keys": sum(sizes),
           "size_min": min(sizes), "size_max": max(sizes), "runs": rows, "launches": launches})
+    return launches
+
+
+def phase_obs_path(torch, core, build):
+    """``main_path``'s det U configuration traced (``SortConfig(obs=...)``)
+    and untraced: equal bits out, the route spans' numbers, a (g, L) fit
+    over the DD ladder's three rungs, and both warm walls."""
+    from repro_torch import obs
+
+    cfg = core.SortConfig(**FULL, **SLICE)
+    u = torch.from_numpy(core.datagen.generate("U", cfg.p, cfg.n_per_proc)).cuda()
+    dd = torch.from_numpy(core.datagen.generate("DD", cfg.p, cfg.n_per_proc)).cuda()
+    build.reset_counts()
+    plain, _, _ = core.bsp_sort_safe(u, cfg)
+    tracer = obs.Tracer()
+    traced, _, _ = core.bsp_sort_safe(u, core.SortConfig(obs=tracer, **FULL, **SLICE))
+    ladder_tracer = obs.Tracer()
+    res, _, stats = core.bsp_sort_safe(dd, core.SortConfig(obs=ladder_tracer, **FULL, **SLICE))
+    torch.cuda.synchronize()
+    launches = build.counts()
+    require_launched(launches, KERNEL_NAMES[:3:2], "obs_path")
+    if not (torch.equal(plain.buf, traced.buf) and torch.equal(plain.count, traced.count)):
+        fail("obs_path", "the traced run's output differs from the untraced run's")
+    check_sort(torch, core, dd, [], res, [], stats, "obs_path", "DD traced")
+    for t in (tracer, ladder_tracer):
+        problems = obs.validate_spans(t) + obs.validate_chrome_trace(t.chrome_trace())
+        if problems:
+            fail("obs_path", f"trace schema: {problems[:3]}")
+    if len(ladder_tracer.route_spans()) != 3:
+        fail("obs_path", f"DD walked {len(ladder_tracer.route_spans())} rungs, expected 3")
+    keep = ("tier", "rung", "ok", "h_words", "supersteps", "recv_max", "imbalance")
+    spans = [dict({k: s_["args"][k] for k in keep}, dur_ms=s_["dur"] * 1e3)
+             for s_ in tracer.route_spans() + ladder_tracer.route_spans()]
+    prepare_ms = [s_["dur"] * 1e3 for s_ in tracer.spans + ladder_tracer.spans if s_["name"] == "prepare"]
+    fit = obs.fit_gl(ladder_tracer.route_spans())
+    # the ladder's h barely moves (max(recv, n_per_proc) words): a fit over
+    # the U rung too spreads h a little more
+    fit_all = obs.fit_gl(tracer.route_spans() + ladder_tracer.route_spans())
+    walls = {}
+    for name, c in (("untraced", cfg), ("traced", None)):
+        ws = []
+        for _ in range(5):
+            run_cfg = c if c is not None else core.SortConfig(obs=obs.Tracer(), **FULL, **SLICE)
+            ws.append(run_sort(torch, core, u, [], run_cfg)[0] * 1e3)
+        walls[name] = dict(median_ms=statistics.median(ws), walls_ms=ws)
+    emit({"phase": "obs_path", "ok": True, "config": dict(**FULL, **SLICE), "route_spans": spans,
+          "prepare_span_ms": prepare_ms, "distribution": [p_["args"] for p_ in tracer.points
+                                                          if p_["name"] == "distribution"],
+          "fit_ladder": dict(g_s_per_word=fit.g_s_per_word, l_s=fit.l_s, r2=fit.r2, n=fit.n_samples, ok=fit.ok),
+          "fit_all": dict(g_s_per_word=fit_all.g_s_per_word, l_s=fit_all.l_s, r2=fit_all.r2,
+                          n=fit_all.n_samples, ok=fit_all.ok),
+          "walls": walls, "launches": launches})
+    torch.cuda.empty_cache()
+    return launches
+
+
+PLANNER_MIXES = ("U", "G", "B", "DD", "zipf")
+
+
+def planner_batch(core, mix):
+    """``segmented_batch``'s 256 Zipf(1.2) sizes (2^23 keys), keys of ``mix``."""
+    import numpy as np
+
+    sizes = [len(a) for a in segmented_batch(core)]
+    keys = core.datagen.generate(mix, 1, KEYS, seed=7)[0]
+    return np.split(keys, np.cumsum(sizes)[:-1])
+
+
+def plan_overrides(d):
+    """The segmented sort's overrides for a plan, as the JAX package's
+    service dispatcher builds them (``service/dispatch.py:605-617``)."""
+    ov = {"pair_capacity": d.pair_capacity}
+    if d.route == "radix":
+        ov["route"] = "radix"
+    elif d.pair_capacity == "planned":
+        ov.update(pair_cap_override=d.pair_cap_override, omega=d.omega)
+    return ov
+
+
+def phase_planner_path(torch, core, build):
+    """The planned segmented sort as a service would drive it: fingerprint →
+    plan → pack with the plan's layout → ``segmented_sort_safe`` with the
+    plan's overrides under the kernels' tree merge → record, on the 256
+    requests of ``segmented_path`` (2^23 keys, p = 128) for each of the
+    planner table's mixes, twice through one planner; then one
+    single-segment int32 batch of 2^23 keys under ``local_sort="bitonic"``.
+    Its position payload sends Ph2 to the stable sort, as in the JAX
+    package, so K1 is gated on the planner's other policy instead: key-only
+    DD sorts through ``bsp_sort_safe(planner=...)`` until the planner has
+    promoted their bucket to the exact rung, and the run that starts there."""
+    from repro_torch import planner as planner_mod
+
+    p = FULL["p"]
+    planner = planner_mod.CapacityPlanner()
+    runs = []
+    build.reset_counts()
+
+    def drive(arrays, overrides):
+        t0 = time.perf_counter()
+        fp = planner_mod.fingerprint_arrays(arrays, p)
+        d = planner.plan(arrays, p, fingerprint=fp)
+        packed = core.pack_segments(arrays, p, layout=d.layout)
+        t_host = time.perf_counter() - t0
+        ov = dict(plan_overrides(d), **overrides)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = core.segmented_sort_safe(packed, **ov)
+        torch.cuda.synchronize()
+        t_sort = time.perf_counter() - t1
+        planner.record(d, res.stats.retries > 0)
+        return fp, d, packed, ov, res, t_host, t_sort
+
+    cases = [(mix, planner_batch(core, mix), dict(merge="tree", merge_backend="pallas"), ["splitter_ranks_int64"])
+             for mix in PLANNER_MIXES]
+    one = [core.datagen.generate("U", 1, KEYS, seed=8)[0]]
+    # the segmented sort carries the pos payload, so its Ph2 is the stable
+    # sort whatever local_sort says (as in the JAX package): no K1 here
+    cases.append(("U single segment", one, dict(merge="tree", merge_backend="pallas", local_sort="bitonic"), []))
+    for name, arrays, overrides, kernels in cases:
+        for attempt in range(2):
+            before = build.counts()
+            torch.cuda.reset_peak_memory_stats()
+            fp, d, packed, ov, res, t_host, t_sort = drive(arrays, overrides)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            check_segments(torch, arrays, res, f"planner {name}", "planner_path")
+            after = build.counts()
+            for k in kernels:
+                if after.get(k, 0) <= before.get(k, 0):
+                    fail("planner_path", f"{name}: kernel {k} was not launched")
+            runs.append(dict(run=name, attempt=attempt, route=d.route, layout=d.layout, start_tier=d.start_tier,
+                             planned_cap=d.pair_cap_override, exact_cap=fp.n_per_proc, omega=d.omega,
+                             rung=d.rung, bucket=d.bucket, tier=res.tier, row=res.stats.as_row(),
+                             retries=res.stats.retries, host_plan_pack_s=t_host, first_sort_s=t_sort,
+                             peak_mem_gib=peak, packed=packed, ov=ov))
+    # key-only DD through bsp_sort_safe(planner=...): whp and whp2 fault, so
+    # the planner promotes sort/det/p128/npp65536/whp a rung after each
+    # min_attempts faulted starts; the run after the last promotion starts
+    # at the exact rung the planner chose and must launch K1
+    x = torch.from_numpy(core.datagen.generate("DD", p, FULL["n_per_proc"])).cuda()
+    cfg = core.SortConfig(**FULL, **SLICE)
+    bucket = f"sort/det/p{p}/npp{cfg.n_per_proc}/whp"
+    ladder = [name for name, _ in cfg.tier_ladder()]
+    starts = []
+    while planner.rung_for(bucket, len(ladder)) < ladder.index("exact") and len(starts) < 4 * planner.min_attempts:
+        starts.append(ladder[planner.rung_for(bucket, len(ladder))])
+        wall, res, pvals, stats = run_sort(torch, core, x, [], cfg, planner=planner)
+        check_sort(torch, core, x, [], res, pvals, stats, "planner_path", "DD, planner policy")
+    before = build.counts()
+    wall, res, pvals, stats = run_sort(torch, core, x, [], cfg, planner=planner)
+    walked = check_sort(torch, core, x, [], res, pvals, stats, "planner_path", "DD, promoted bucket")
+    if walked != ["exact"] or stats.retries:
+        fail("planner_path", f"DD, promoted bucket: walked {walked} with {stats.retries} retries")
+    if build.counts().get("bitonic_sort_tiles", 0) <= before.get("bitonic_sort_tiles", 0):
+        fail("planner_path", "DD, promoted bucket: kernel bitonic_sort_tiles was not launched")
+    runs.append(dict(run="DD key-only, bsp_sort_safe(planner=), after promotion", bucket=bucket,
+                     starts_before=starts, tiers=walked, wall_s=wall))
+    launches = build.counts()
+    for r in runs:
+        packed, ov = r.pop("packed", None), r.pop("ov", None)
+        if packed is not None and r["attempt"] == 1:
+            r.update(where_time_goes(torch, lambda: core.segmented_sort_safe(packed, **ov), reps=3))
+    torch.cuda.empty_cache()
+    emit({"phase": "planner_path", "ok": True, "p": p, "keys": KEYS, "runs": runs,
+          "telemetry": planner.telemetry(), "launches": launches})
+    return launches
+
+
+def phase_delta_path(torch, core, build):
+    """The delta subsystem at full width: a ``SortedView`` on the kernels
+    (``merge_backend="pallas"``) holding 2^23 int32 keys and an int32
+    payload folds Δ = 2^16, then Δ = 2^20 (K2 must launch); then
+    ``near_sorted_sort`` of 2^23 streams with 1% of their keys displaced
+    (appended, and scattered in place), against a cold ``bsp_sort_safe`` of
+    the same stream. Outputs equal the stable sort byte for byte; the fold's
+    long rank calls must launch the int64 K2. The launches are read after
+    the checked folds and sorts; the timing reruns and the cold reference
+    sorts come after them and are not counted."""
+    import numpy as np
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import delta
+
+    p, n = FULL["p"], KEYS
+    rng = np.random.default_rng(9)
+    base = np.sort(rng.integers(-(2**31), 2**31, n, dtype=np.int64).astype(np.int32))
+    runs, folds, sorts = [], [], []
+    build.reset_counts()
+    view = delta.SortedView(p=p, merge_backend="pallas")
+    view.install(base, [np.arange(n, dtype=np.int32)])
+    hist_k, hist_v = torch.from_numpy(base).cuda(), torch.arange(n, dtype=torch.int32, device="cuda")
+    for dn in (KEYS // 128, KEYS // 8):  # 2^16, 2^20
+        dk = rng.integers(-(2**31), 2**31, dn, dtype=np.int64).astype(np.int32)
+        dv = np.arange(n, n + dn, dtype=np.int32)
+        torch.cuda.reset_peak_memory_stats()
+        probe = view.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        route = view.fold(dk, [dv])
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if route != "fold":
+            fail("delta_path", f"Δ = {dn}: took {route}, expected fold")
+        hist_k = torch.cat([hist_k, torch.from_numpy(dk).cuda()])
+        hist_v = torch.cat([hist_v, torch.from_numpy(dv).cuda()])
+        want = torch.sort(hist_k, stable=True)
+        if not (torch.equal(view.keys, want.values) and torch.equal(view.payloads[0], hist_v[want.indices])):
+            fail("delta_path", f"Δ = {dn}: the view is not the stable sort of its history")
+        runs.append(dict(run=f"view fold Δ={dn}", view_n=probe.n, first_s=first, peak_mem_gib=peak))
+        folds.append((runs[-1], probe, dk, dv))
+        n += dn
+    require_launched(build.counts(), ["splitter_ranks"], "delta_path", "the view's folds")
+    for pattern in ("appended", "scattered"):
+        x = core.datagen.near_sorted(KEYS, 0.01, pattern, seed=10)
+        torch.cuda.reset_peak_memory_stats()
+        before = build.counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = delta.near_sorted_sort(x, p, backend="pallas")
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if before.get("splitter_ranks_int64", 0) >= build.counts().get("splitter_ranks_int64", 0):
+            fail("delta_path", f"near_sorted_sort {pattern} did not launch the int64 K2")
+        if res.tier != "delta" or res.stats.retries:
+            fail("delta_path", f"near_sorted_sort {pattern}: tier {res.tier}, {res.stats.retries} retries")
+        t0 = time.perf_counter()
+        delta_n = int(delta.split_sorted_run(x)[1].size)
+        split_s = time.perf_counter() - t0
+        runs.append(dict(run=f"near_sorted_sort 2^23, 1% {pattern}", delta_n=delta_n, host_split_s=split_s,
+                         first_s=first, peak_mem_gib=peak))
+        sorts.append((runs[-1], pattern, x, res))
+    launches = build.counts()
+
+    def k2_device_ms(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(ms for k, (ms, _) in device_split(torch, prof).items() if "ranks_kernel" in k or "row_order" in k)
+
+    # not counted from here on: warm walls, profiles and the cold reference
+    # sorts; each timed fold takes a copy of the view made outside its window
+    for row, probe, dk, dv in folds:
+        views = [probe.clone() for _ in range(5)]  # 3 walls, the busy profile, the K2 profile
+        torch.cuda.synchronize()
+        row.update(where_time_goes(torch, lambda: views.pop().fold(dk, [dv]), reps=3))
+        row["k2_device_ms"] = k2_device_ms(lambda: views.pop().fold(dk, [dv]))
+    del folds, view, probe, views, hist_k, hist_v, want
+    torch.cuda.empty_cache()
+    vals = [torch.arange(KEYS, dtype=torch.int32, device="cuda").reshape(p, -1)]
+    cold_cfg = {"whp": core.SortConfig(**FULL, **SLICE),
+                "exact": core.SortConfig(**FULL, **dict(SLICE, pair_capacity="exact"))}
+    for row, pattern, x, res in sorts:
+        xt = torch.from_numpy(x).cuda().reshape(p, -1)
+        cold, cvals, _ = core.bsp_sort_safe(xt, cold_cfg["exact"], values=vals)
+        cold_order = torch.cat([cvals[0][k, :c] for k, c in enumerate(cold.count.tolist())])
+        if not (torch.equal(res.keys[0], core.gathered_output(cold)) and torch.equal(res.order[0], cold_order)):
+            fail("delta_path", f"near_sorted_sort {pattern} differs from the cold sort")
+        row.update(where_time_goes(torch, lambda: delta.near_sorted_sort(x, p, backend="pallas"), reps=3))
+        row["k2_device_ms"] = k2_device_ms(lambda: delta.near_sorted_sort(x, p, backend="pallas"))
+        # the cold ladder on the same stream: from exact (one rung), and from
+        # whp as the main path starts (sorted runs fault whp and whp2)
+        for start, c in cold_cfg.items():
+            if pattern == "appended" and start == "whp":
+                continue
+            _, _, cst = core.bsp_sort_safe(xt, c, values=vals)
+            cold_row = dict(run=f"cold bsp_sort_safe, 1% {pattern}, det on the kernels + payload, from {start}",
+                            tiers=list(cst.attempts))
+            cold_row.update(where_time_goes(torch, lambda: core.bsp_sort_safe(xt, c, values=vals), reps=3))
+            runs.append(cold_row)
+    torch.cuda.empty_cache()
+    emit({"phase": "delta_path", "ok": True, "p": p, "runs": runs, "launches": launches})
     return launches
 
 
@@ -1164,7 +1552,9 @@ def main() -> int:
     launches = dict.fromkeys(KERNEL_NAMES, 0)
     for counted in (phase_main_path(torch, core, build), phase_iran_path(torch, core, build),
                     phase_sort_kv_path(torch, bops, build), phase_radix_path(torch, core, build),
-                    phase_ring_path(torch, core, build), phase_segmented_path(torch, core, build)):
+                    phase_ring_path(torch, core, build), phase_segmented_path(torch, core, build),
+                    phase_obs_path(torch, core, build), phase_planner_path(torch, core, build),
+                    phase_delta_path(torch, core, build)):
         for name in KERNEL_NAMES:
             launches[name] += counted.get(name, 0)
     phase_ladder(torch, core)
@@ -1182,6 +1572,8 @@ def main() -> int:
         "K2_int64": ("splitter_ranks_int64", "src/repro_torch/csrc/splitter_ranks.cu",
                      "src/repro/kernels/searchsorted/kernel.py:47"),
         "K3_int64": ("merge_sorted_tiles_int64", "src/repro_torch/csrc/merge_path.cu",
+                     "src/repro/kernels/merge_path/kernel.py:39"),
+        "K3_float": ("merge_sorted_tiles_float", "src/repro_torch/csrc/merge_path.cu",
                      "src/repro/kernels/merge_path/kernel.py:39"),
     }
     kernels = []

@@ -136,13 +136,32 @@ def sort_key(x: torch.Tensor) -> torch.Tensor:
     return b ^ ((b >> (width - 1)) & (2 ** (width - 1) - 1))
 
 
+def canonical_nans(x: torch.Tensor) -> torch.Tensor:
+    """bfloat16 NaNs rewritten to the quiet NaN of their sign (``0x7fc0`` /
+    ``0xffc0``); any other tensor unchanged.
+
+    The JAX package's ops that compute on bfloat16 (``lax.sort``,
+    ``jnp.where``, ``jnp.concatenate``) do this on XLA:CPU, since they run
+    in float32 and round back; its gathers keep the bits. The port applies
+    it where those ops stand (:func:`stable_sort`, the routing's row
+    formation), on every device, with integer operations on the bits.
+    """
+    if x.dtype != torch.bfloat16:
+        return x
+    b = x.view(torch.int16)
+    quiet = torch.where(b < 0, torch.tensor(-64, dtype=torch.int16, device=x.device),  # 0xffc0
+                        torch.tensor(0x7FC0, dtype=torch.int16, device=x.device))
+    return torch.where((b & 0x7FFF) > 0x7F80, quiet, b).view(torch.bfloat16)
+
+
 def stable_sort(x: torch.Tensor, dim: int = -1):
     """``(values, indices)`` of a stable ascending sort in the JAX package's
-    order, the same on every device (float keys sort by :func:`sort_key`)."""
+    order, the same on every device (float keys sort by :func:`sort_key`;
+    bfloat16 NaNs come out canonical, as from ``lax.sort``)."""
     if not x.is_floating_point():
         return tuple(torch.sort(x, dim=dim, stable=True))
     order = torch.sort(sort_key(x), dim=dim, stable=True).indices
-    return gather(x, dim, order), order
+    return canonical_nans(gather(x, dim, order)), order
 
 
 def searchsorted(

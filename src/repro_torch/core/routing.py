@@ -129,6 +129,7 @@ def _segment_rows(
         fill = key_sentinel if i == 0 else _PAYLOAD_PAD
         mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
         rows.append(torch.where(mask, g, torch.tensor(fill, dtype=a.dtype, device=a.device)))
+    rows[0] = prim.canonical_nans(rows[0])  # the key rows' where computes on them
     return rows
 
 
@@ -179,6 +180,7 @@ def recv_rows(
             fill = sent if i == 0 else _PAYLOAD_PAD
             mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
             rows.append(torch.where(mask, g, torch.tensor(fill, dtype=a.dtype, device=a.device)))
+        rows[0] = prim.canonical_nans(rows[0])
         over = rcounts.sum(dim=1) > cfg.n_max
         return rows, rcounts, over.any().expand(p)
 
@@ -222,7 +224,8 @@ def route(
     """Route bucket i of every processor to processor i, compacted by source.
 
     Returns ``(buf, value_bufs, count, overflow)``: (p, n_max) receive
-    buffers ordered by (src, idx), (p,) int32 valid lengths, (p,) flags.
+    buffers ordered by (src, idx), (p,) valid lengths (int32; int64 for
+    int64 keys), (p,) flags.
     """
     sent = sentinel_for(x_sorted.dtype)
     cap = cfg.n_max
@@ -230,8 +233,15 @@ def route(
         return _route_ring(x_sorted, boundaries, cfg, values, sent)
     rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
     out = compact_rows(rows, rcounts, cap, sent)
-    total = torch.clamp(rcounts.sum(dim=1, dtype=torch.int32), max=cap)
+    total = torch.clamp(_received_total(rcounts, x_sorted), max=cap)
     return out[0], out[1:], total, overflow
+
+
+def _received_total(rcounts: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """(p,) keys received, int64 for int64 keys: the JAX package's sum of
+    the receive counts widens to int64 under the 64-bit scope its int64
+    keys need. The merge tree's own counts stay int32 there too."""
+    return rcounts.sum(dim=1, dtype=torch.int64 if keys.dtype == torch.int64 else torch.int32)
 
 
 def _fit(arr: torch.Tensor, cap: int, fill) -> torch.Tensor:
@@ -295,7 +305,7 @@ def _route_ring(
 
     rcounts = recv_counts(send_counts(boundaries))  # (p_me, p_src)
     offsets = prim.exclusive_cumsum(rcounts, dim=1)
-    total = rcounts.sum(dim=1, dtype=torch.int32)
+    total = _received_total(rcounts, x_sorted)
     overflow = (total > cap).any().expand(p)
 
     bufs = [

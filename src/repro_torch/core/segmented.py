@@ -25,7 +25,9 @@ by ``pos``).
 
 Packing is host code (numpy), the JAX package's own, copied. torch has
 int64 throughout, so there is no 64-bit scope to enter; results come back
-as tensors on the run's device.
+as tensors on the run's device. ``executor=`` shares the stage registry
+(``api.SortExecutor``); a traced config (``obs=``) adds a ``segments``
+point with the batch's shape to the sort's timeline lane.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .api import InFlightSort, TierStats, bsp_sort_safe_launch, gathered_output
+from ..obs import resolve_tracer
+from .api import InFlightSort, SortExecutor, TierStats, bsp_sort_safe_launch, gathered_output
 from .types import SortConfig, resolve_device
 
 #: bits of the composite holding the (biased) key; segment id sits above.
@@ -205,6 +208,7 @@ def segmented_sort_launch(
     stats: Optional[TierStats] = None,
     generator: Optional[torch.Generator] = None,
     device=None,
+    executor: Optional[SortExecutor] = None,
     **overrides,
 ) -> InFlightSegmentedSort:
     """Launch one fused overflow-safe sort without awaiting it.
@@ -214,7 +218,10 @@ def segmented_sort_launch(
     receive side is still Claim 5.1's bound, and a batch over it escalates
     to the allgather rung instead of dropping keys. ``generator`` draws
     the randomized sample, as in :func:`api.bsp_sort_safe_launch`.
-    ``route="radix"`` sorts the composites by counting, in one rung.
+    ``route="radix"`` sorts the composites by counting, in one rung. A
+    batch packed with ``layout="striped"`` can start below exact with the
+    capacity planner's bound: ``pair_capacity="planned"`` with its
+    ``pair_cap_override`` and ``omega`` (``repro_torch.planner``).
     """
     if cfg is None:
         cfg = SortConfig(
@@ -229,8 +236,20 @@ def segmented_sort_launch(
     pos = torch.from_numpy(packed.pos).to(dev)
     flight = bsp_sort_safe_launch(
         x, cfg, values=(pos,), stats=stats if stats is not None else TierStats(),
-        generator=generator, device=dev,
+        generator=generator, device=dev, executor=executor,
     )
+    if flight.trace_tid is not None:
+        # the batch's segment shape, on the sort's timeline lane
+        sizes = packed.sizes
+        resolve_tracer(cfg.obs).point(
+            "segments",
+            tid=flight.trace_tid,
+            n_segments=len(sizes),
+            n_keys=packed.n_keys,
+            layout=packed.layout,
+            sizes=list(sizes) if len(sizes) <= 256 else None,
+            size_max=max(sizes) if sizes else 0,
+        )
     return InFlightSegmentedSort(packed=packed, flight=flight)
 
 
@@ -241,11 +260,12 @@ def segmented_sort_safe(
     stats: Optional[TierStats] = None,
     generator: Optional[torch.Generator] = None,
     device=None,
+    executor: Optional[SortExecutor] = None,
     **overrides,
 ) -> SegmentedResult:
     """Sort every packed segment in one overflow-safe BSP sort (blocking)."""
     return segmented_sort_launch(
-        packed, cfg, stats=stats, generator=generator, device=device, **overrides
+        packed, cfg, stats=stats, generator=generator, device=device, executor=executor, **overrides
     ).wait()
 
 
@@ -278,8 +298,10 @@ def sort_segments(
     stats: Optional[TierStats] = None,
     generator: Optional[torch.Generator] = None,
     device=None,
+    executor: Optional[SortExecutor] = None,
     **overrides,
 ) -> SegmentedResult:
     """Pack, sort and unpack a batch of ragged requests."""
     packed = pack_segments(arrays, p, n_per_proc=n_per_proc, min_n_per_proc=min_n_per_proc, layout=layout)
-    return segmented_sort_safe(packed, stats=stats, generator=generator, device=device, **overrides)
+    return segmented_sort_safe(packed, stats=stats, generator=generator, device=device, executor=executor,
+                               **overrides)

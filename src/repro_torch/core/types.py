@@ -62,8 +62,9 @@ class SortConfig:
     """Static configuration of one BSP sort instance.
 
     The fields and the capacity arithmetic are those of the JAX package's
-    ``SortConfig`` (without its host-side ``obs``/``chaos`` handles), so a
-    configuration carries across unchanged (``core/convert.py``):
+    ``SortConfig`` (without its ``chaos`` handle, which waits for the chaos
+    layer), so a configuration carries across unchanged
+    (``core/convert.py``):
 
     * ``omega`` — oversampling regulator ω_n (det default ⌈lg lg n⌉).
     * ``route`` — ``sample`` (Ph3 splitters) or ``radix`` (one counting
@@ -82,6 +83,10 @@ class SortConfig:
       lexicographic sort) or ``bitonic`` (compare-split over processors).
     * ``seed`` — seeds the randomized sorts' sample when the caller gives
       no generator.
+    * ``obs`` — a :class:`repro_torch.obs.Tracer` or None. Host-side only:
+      the drivers read it at launch/wait boundaries. It is left out of
+      ``__eq__``/``__hash__``, so a traced and an untraced config are equal
+      and share every executor entry.
     """
 
     p: int
@@ -102,6 +107,7 @@ class SortConfig:
     n_max_mode: str = "bound"
     n_max_override: Optional[int] = None
     seed: int = 0
+    obs: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
 
     # ------------------------------------------------------------------ math
     @property
@@ -233,6 +239,32 @@ class SortConfig:
         )
         return tuple(tiers)
 
+    def prepare_key(self) -> "SortConfig":
+        """The config with the fields that vary across the ladder normalised.
+
+        The rungs differ only in capacity, routing, merge and exchange
+        fields, none of which the prepare stage (Ph2, and det's Ph3
+        splitters) reads, so two configs with equal ``prepare_key()`` share
+        one prepared state. ``omega`` stays only for det on the sample
+        route (the only prepare that draws a sample); ``obs`` is dropped so
+        an executor key never holds a tracer. The JAX package's
+        normalisation, field for field.
+        """
+        return dataclasses.replace(
+            self,
+            capacity_factor=1.0,
+            pair_capacity="exact",
+            pair_cap_override=None,
+            routing="a2a_dense",
+            n_max_mode="bound",
+            n_max_override=None,
+            merge="sort",
+            merge_backend="xla",
+            exchange="fused",
+            omega=self.omega if (self.algorithm == "det" and self.route == "sample") else None,
+            obs=None,
+        )
+
     def validate(self) -> None:
         if self.p & (self.p - 1):
             raise ValueError(f"p must be a power of two for bitonic stages, got {self.p}")
@@ -269,7 +301,7 @@ class SortResult:
     """Per-processor capacity-padded result of a distributed sort."""
 
     buf: torch.Tensor  # (p, cap)
-    count: torch.Tensor  # (p,) int32 — valid prefix length
+    count: torch.Tensor  # (p,) valid prefix length (int32; int64 for int64 keys off the tree tail)
     overflow: torch.Tensor  # bool scalar — any capacity violated (retriable)
 
 

@@ -12,8 +12,6 @@ from typing import Optional
 
 import torch
 
-from ...core.primitives import bias_unsigned, unbias_unsigned
-
 
 def stage(x: torch.Tensor, k: int, j: int, vals: Optional[torch.Tensor] = None):
     """One compare-exchange substage: partner = index XOR j, region size k.
@@ -38,6 +36,10 @@ def stage(x: torch.Tensor, k: int, j: int, vals: Optional[torch.Tensor] = None):
 
 def _network(x: torch.Tensor, vals: Optional[torch.Tensor]):
     w = x.shape[1]
+    # imported here, not at the top: ``core`` imports the merge-path kernel,
+    # whose plain version imports :func:`stage` from this module
+    from ...core.primitives import bias_unsigned, unbias_unsigned
+
     unsigned = x.dtype == torch.uint32
     if unsigned:  # the CPU has no uint32 compare; the bias keeps the order
         x = bias_unsigned(x)

@@ -6,8 +6,9 @@
   and int64 keys (the latter counted under ``merge_sorted_tiles_int64``)
   a partition kernel splits the merge path at every span boundary and
   a merge kernel merges each span of :func:`int_span` outputs; for float
-  keys a diagonal kernel replays the JAX package's search and the TPU's
-  network merges each ``TILE``-wide window. A CPU tensor takes the window
+  keys (counted under ``merge_sorted_tiles_float``) a diagonal kernel
+  replays the JAX package's search and the TPU's network merges each
+  ``TILE``-wide window. A CPU tensor takes the window
   merge in ``ref.py``. ``width`` produces only the first output columns
   (the merge tree clips every round to the receive bound). Keys are int32,
   float32, bfloat16 or int64; the bytes equal the JAX package's, ties of
@@ -35,6 +36,7 @@ _KERNEL_DTYPES = (torch.int32, torch.float32, torch.bfloat16, torch.int64)
 
 LAUNCHES = _build.counter("merge_sorted_tiles")
 LAUNCHES_INT64 = _build.counter("merge_sorted_tiles_int64")
+LAUNCHES_FLOAT = _build.counter("merge_sorted_tiles_float")
 
 
 def _pow2_at_least(n: int, floor: int = 128) -> int:
@@ -82,7 +84,10 @@ def merge_partitioned(a: torch.Tensor, b: torch.Tensor, width: Optional[int] = N
         code, _build.stream_handle(),
     )
     _build.check_launch(lib, rc, "merge_sorted_tiles")
-    (LAUNCHES_INT64 if a.dtype == torch.int64 else LAUNCHES).n += 1
+    if a.is_floating_point():
+        LAUNCHES_FLOAT.n += 1
+    else:
+        (LAUNCHES_INT64 if a.dtype == torch.int64 else LAUNCHES).n += 1
     return out
 
 

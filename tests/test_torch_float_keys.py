@@ -169,3 +169,50 @@ def test_bfloat16_nans_keep_their_bits(local_sort, merge, backend, n_values):
 
     cfg = dict(local_sort=local_sort, merge=merge, merge_backend=backend, pair_capacity="whp")
     run_both(float_keys("nans", seed=4).astype(ml_dtypes.bfloat16), cfg, n_values)
+
+
+def noncanonical_nan_keys(seed: int = 5) -> np.ndarray:
+    """(8, 64) bfloat16 keys, every 9th a NaN with non-canonical bits:
+    ``0xffff`` and ``0x7f81`` in turn (torch's own bfloat16 NaN on the CPU
+    is ``0xffff``)."""
+    import ml_dtypes
+
+    x = np.random.default_rng(seed).standard_normal((8, 64)).astype(np.float32).astype(ml_dtypes.bfloat16)
+    flat = x.view(np.uint16).reshape(-1)
+    at = np.arange(0, flat.size, 9)
+    flat[at] = np.where(np.arange(at.size) % 2 == 0, 0xFFFF, 0x7F81)
+    return x
+
+
+#: Ph6 merge and substrate of the F5 grid
+F5_MERGES = [("sort", "xla"), ("tree", "xla"), ("tree", "pallas")]
+F5_CASES = [dict(local_sort=ls, merge=m, merge_backend=b, routing=r,
+                 pair_capacity="whp" if r == "a2a_dense" and ls != "radix" else "exact")
+            for ls in ("lax", "bitonic", "radix") for m, b in F5_MERGES for r in ("a2a_dense", "ring")]
+F5_CASES += [dict(route="radix", local_sort="lax", pair_capacity="exact"),
+             dict(route="radix", local_sort="bitonic", merge="tree", merge_backend="pallas", pair_capacity="exact")]
+
+
+@pytest.mark.parametrize("n_values", [0, 1])
+@pytest.mark.parametrize("cfg_kw", F5_CASES, ids=["-".join(str(v) for v in c.values()) for c in F5_CASES])
+def test_bfloat16_noncanonical_nans_match_reference(cfg_kw, n_values):
+    """F5: the reference's bfloat16 ops rewrite a NaN to the quiet NaN of
+    its sign (``0xffff`` -> ``0xffc0``, ``0x7f81`` -> ``0x7fc0``) wherever
+    they compute on it; the port's output must carry the same bits, over
+    Ph2 × Ph6 × routing and the radix route. Tolerance: exact bytes."""
+    import jax.numpy as jnp
+
+    ref = reference()
+    x = noncanonical_nan_keys()
+    p, n_p = x.shape
+    vals = [np.arange(x.size, dtype=np.int32).reshape(x.shape)][:n_values]
+    rcfg = ref.SortConfig(p=p, n_per_proc=n_p, **cfg_kw)
+    rres, rvals, rstats = ref.bsp_sort_safe(jnp.asarray(x), rcfg, values=[jnp.asarray(v) for v in vals])
+    res, pvals, stats = bsp_sort_safe(
+        to_torch(x), config_from_reference(config_fields(rcfg)), values=vals, device="cpu"
+    )
+    assert_bytes(rres.buf, res.buf, "buf")
+    assert_bytes(rres.count, res.count, "count")
+    for rv, pv in zip(rvals, pvals):
+        assert_bytes(rv, pv, "payload")
+    assert stats.as_row() == rstats.as_row()

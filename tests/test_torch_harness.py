@@ -65,6 +65,9 @@ def adversarial(p: int, n_p: int) -> np.ndarray:
     return np.repeat((np.arange(p, dtype=np.int32) * 1000)[:, None], n_p, axis=1)
 
 
+# Imports ``repro_torch`` first, so a module that imports only after the
+# package has (a circular import) passes here; tests/test_torch_imports.py
+# is the check that each module imports on its own.
 _IMPORT_CHECK = """
 import importlib, pkgutil, sys
 import repro_torch

@@ -313,7 +313,8 @@ def test_kernels_match_plain_on_card():
             assert same(mops.merge_partitioned(ga, gb), mref.merge_windows(ga, gb, tile, 2 * w))
     _rank_merge_edges_on_card(g)
     counts = _build.counts()
-    for name in ("bitonic_sort_tiles", "bitonic_sort_kv_tiles", "splitter_ranks", "merge_sorted_tiles"):
+    for name in ("bitonic_sort_tiles", "bitonic_sort_kv_tiles", "splitter_ranks", "merge_sorted_tiles",
+                 "merge_sorted_tiles_float"):
         assert counts[name] > 0, name
 
 

@@ -62,10 +62,7 @@ def run_both(x: np.ndarray, cfg_kw: dict, n_values: int = 0):
         to_torch(x), config_from_reference(config_fields(rcfg)), values=vals, device="cpu"
     )
     assert_bytes(rbuf, res.buf, "buf")
-    if x.dtype == np.int64:  # the 64-bit scope widens the sort tail's count sum
-        assert np.array_equal(rcount, res.count.numpy()) and res.count.dtype == torch.int32
-    else:
-        assert_same(rcount, res.count, "count")
+    assert_same(rcount, res.count, "count")
     assert bool(rover) == bool(res.overflow)
     assert len(pvals) == n_values
     for rv, pv in zip(rvals, pvals):
@@ -176,3 +173,70 @@ def test_one_bucket_skew_needs_one_rung():
     x = np.full((P, 256), 123456, np.int32)
     res = run_both(x, dict(pair_capacity="exact", algorithm="det"))
     assert int(res.count.sum()) == x.size
+
+
+#: every path that takes int64 keys: (name, config overrides, payloads)
+INT64_PATHS = [
+    ("det sample, sort tail", dict(algorithm="det"), 1),
+    ("iran whp", dict(algorithm="iran", pair_capacity="whp"), 0),
+    ("ran", dict(algorithm="ran", pair_capacity="whp"), 1),
+    ("allgather", dict(routing="allgather"), 0),
+    ("ring fused", dict(routing="ring"), 1),
+    ("ring per_array, tree", dict(routing="ring", exchange="per_array", merge="tree"), 0),
+    ("tree xla", dict(merge="tree"), 1),
+    ("tree pallas", dict(merge="tree", merge_backend="pallas"), 0),
+    ("radix local sort", dict(local_sort="radix"), 1),
+    ("radix route", dict(route="radix"), 1),
+    ("radix route, tree pallas", dict(route="radix", merge="tree", merge_backend="pallas"), 0),
+    ("det escalating to allgather", dict(algorithm="det", capacity_factor=0.25, pair_capacity="whp"), 0),
+]
+
+
+@pytest.mark.parametrize("name,overrides,n_values", INT64_PATHS, ids=[c[0] for c in INT64_PATHS])
+def test_int64_count_dtype_matches_reference(name, overrides, n_values):
+    """The count of an int64-key sort has the reference's dtype: int64 where
+    its receive counts are summed under the 64-bit scope, int32 where the
+    merge tree's counts are the result. The randomized sorts draw another
+    sample than the reference's, so there the sorted keys are compared, not
+    each processor's share."""
+    import jax.numpy as jnp
+
+    ref = reference()
+    x = mix("U64", n_p=256)
+    vals = [np.arange(x.size, dtype=np.int32).reshape(x.shape)][:n_values]
+    rcfg = ref.SortConfig(p=P, n_per_proc=256, **overrides)
+    with x64():
+        rres, rvals, rstats = ref.bsp_sort_safe(jnp.asarray(x), rcfg, values=[jnp.asarray(v) for v in vals])
+        rcount, rbuf = np.asarray(rres.count), np.asarray(rres.buf)
+    res, pvals, stats = bsp_sort_safe(
+        torch.from_numpy(x), config_from_reference(config_fields(rcfg)), values=vals, device="cpu"
+    )
+    assert res.count.dtype == torch.from_numpy(rcount).dtype, f"count dtype {res.count.dtype} != {rcount.dtype}"
+    if overrides.get("algorithm") in ("iran", "ran"):
+        got = np.concatenate([res.buf[k, : int(c)].numpy() for k, c in enumerate(res.count)])
+        assert np.array_equal(got, np.sort(x.ravel()))
+        return
+    assert_same(rcount, res.count, "count")
+    assert_same(rbuf, res.buf, "buf")
+    for rv, pv in zip(rvals, pvals):
+        assert_same(rv, pv, "payload")
+    assert stats.as_row() == rstats.as_row()
+
+
+def test_int64_count_dtype_of_segmented_composites():
+    """The segmented sort's int64 composite run, under both merge tails."""
+    reference()
+    from repro.core import segmented as rseg
+
+    from repro_torch.core import segmented
+
+    rng = np.random.default_rng(9)
+    arrs = [rng.integers(-1000, 1000, n).astype(np.int32) for n in (1, 300, 2000, 77)]
+    for overrides in ({}, dict(merge="tree", merge_backend="pallas"), dict(route="radix")):
+        with x64():
+            rpk = rseg.pack_segments(arrs, P, layout="striped")
+            rres, _, _ = rseg.segmented_sort_launch(rpk, **overrides).flight.wait()
+            rcount = np.asarray(rres.count)
+        pk = segmented.pack_segments(arrs, P, layout="striped")
+        res, _, _ = segmented.segmented_sort_launch(pk, device="cpu", **overrides).flight.wait()
+        assert res.count.dtype == torch.from_numpy(rcount).dtype, f"count dtype {overrides}"
