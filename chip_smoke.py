@@ -21,7 +21,10 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      (extremes, sentinel tails, broadcast and unsorted
                      query rows, clipped widths), and K2 int64 on the delta
                      fold's one long row (2^23 against 2^16); K3's float
-                     route at the merge tail's whp round 1 and exact round;
+                     route at the merge tail's whp round 1 and exact round
+                     on NaN-free rows, rows with a ±0.0 band (merge route)
+                     and rows with NaNs (network route), each with the
+                     count of reference spans the network merged;
                      at the paths' shapes.
                      Times by CUDA events (warmed, median of repeats) and
                      profiler device time, beside the kernel's bound, its
@@ -60,6 +63,11 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      the int64 K3.
 10. ``ring_path``  — SORT_DET_BSP with ``routing="ring"`` (127 rotations)
                      under both exchange modes, and with a payload.
+10a. ``float_path``— SORT_DET_BSP on float32 keys at the same full width on
+                     the kernels' tree merge: U cast to float32, and the
+                     same keys with one in 16 replaced by -0.0 or +0.0
+                     (values and the count of -0.0 keys checked); K3's
+                     float route must launch.
 11. ``segmented_path`` — 256 ragged int32 requests (one of a single key, one
                      of over 2^20; 2^23 keys in all) fused into one int64
                      composite sort at p = 128, striped and contiguous under
@@ -96,7 +104,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 11, 12, 13 and 14, each counted from zero just before the
+7, 8, 9, 10, 10a, 11, 12, 13 and 14, each counted from zero just before the
 phase's checked runs and read just after; the int64 routes of K2 and K3
 and K3's float route are listed and counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -214,6 +222,11 @@ def bound(bytes_moved: float, ops: float) -> tuple:
 def bits(torch, t):
     """The tensor's bits as an integer tensor of the same width."""
     return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def neg_zeros(torch, t) -> int:
+    """How many keys of a float tensor are -0.0, by their bits."""
+    return int((bits(torch, t) == bits(torch, torch.tensor(-0.0, dtype=t.dtype, device=t.device))).sum())
 
 
 def max_abs_err(torch, got, want, phase: str, what: str) -> float:
@@ -434,44 +447,122 @@ def kernels_k2_delta_row(torch, sops, sref, gen, details):
     return errs
 
 
+def k3_float_rows(torch, kind, dtype, rows, w, gen):
+    """Sorted float (rows, w) row pairs for K3's float route, with +inf
+    tails as the merge tail pads them: ``NaN-free``; ``±0 band``, keys of
+    both signs with one in 16 replaced by -0.0 or +0.0 before sorting, so
+    every row holds a band of mixed zeros mid-row; ``NaN``, the NaN-free
+    rows with one key in 64 replaced by a NaN of either sign in place (out
+    of order, as the bitonic tile sort can leave a run)."""
+    int_max = float(torch.iinfo(torch.int32).max)
+    pair = []
+    for _ in range(2):
+        x = sorted_rows(torch, rows, w, torch.int32, gen, True).to(torch.float32)
+        tail = x == int_max
+        if kind == "±0 band":
+            pick = torch.randint(0, 32, x.shape, device="cuda", generator=gen)
+            x = torch.where(pick == 0, -0.0, torch.where(pick == 1, 0.0, x - 2**29))
+        x = torch.sort(torch.where(tail, float("inf"), x).to(dtype), dim=-1).values
+        if kind == "NaN":
+            pick = torch.randint(0, 128, x.shape, device="cuda", generator=gen)
+            x = torch.where(pick == 0, float("nan"), torch.where(pick == 1, -float("nan"), x.float())).to(dtype)
+        pair.append(x.contiguous())
+    return pair
+
+
+def network_spans(torch, mops, a, b, out_w, has_nan):
+    """Reference spans that K3's float route merges by the TPU network,
+    counted by the script from the inputs with plain tensor ops (the kernel
+    counts nothing): every span of a call that may hold a NaN; on NaN-free
+    sorted rows, each span [k*tile, (k+1)*tile) whose window (tile keys a
+    side from its split) holds both -0.0 and +0.0 and meets a merge CTA
+    whose inputs hold a zero. Returns (network spans, all spans)."""
+    import torch.nn.functional as F
+
+    rows, w = a.shape
+    tile = min(mops.TILE, mops._pow2_at_least(w))
+    span = mops.int_span(out_w)
+    nt = -(-out_w // tile)
+    if has_nan:
+        return rows * nt, rows * nt
+    assert span >= tile, "a reference span meets at most two merge CTAs"
+    af, bf = a.float(), b.float()
+    pos_a = (torch.arange(w, device="cuda", dtype=torch.int32)
+             + torch.searchsorted(bf, af, side="left", out_int32=True))
+
+    def split(d):  # a-elements among the first d outputs of each row
+        return torch.searchsorted(pos_a, d.expand(rows, -1).contiguous(), side="left", out_int32=True).long()
+
+    def prefix(x, negative):  # keys that are a zero of the given sign, before each index
+        z = (x == 0) & (torch.signbit(x) == negative)
+        return F.pad(torch.cumsum(z, dim=1, dtype=torch.int32), (1, 0))
+
+    def count(pre, lo, hi):
+        return pre.gather(1, hi.clamp(0, w)) - pre.gather(1, lo.clamp(0, w))
+
+    pos_a_zero, neg_a_zero = prefix(af, False), prefix(af, True)
+    pos_b_zero, neg_b_zero = prefix(bf, False), prefix(bf, True)
+    dk = torch.arange(nt, device="cuda") * tile
+    ia = split(dk)
+    ib = dk - ia
+    ea, eb = (ia + tile).clamp(max=w), (ib + tile).clamp(max=w)
+    mixed = ((count(pos_a_zero, ia, ea) + count(pos_b_zero, ib, eb) > 0)
+             & (count(neg_a_zero, ia, ea) + count(neg_b_zero, ib, eb) > 0))
+    dc = (torch.arange(-(-out_w // span) + 1, device="cuda") * span).clamp(max=out_w)
+    ic = split(dc)
+    jc = dc - ic
+    zeros_a, zeros_b = pos_a_zero + neg_a_zero, pos_b_zero + neg_b_zero
+    cta_zero = (count(zeros_a, ic[:, :-1], ic[:, 1:]) + count(zeros_b, jc[:, :-1], jc[:, 1:])) > 0
+    first = (dk // span).expand(rows, -1)
+    last = ((dk + tile).clamp(max=out_w) - 1) // span
+    gate = cta_zero.gather(1, first) | cta_zero.gather(1, last.expand(rows, -1))
+    return int((mixed & gate).sum()), rows * nt
+
+
 def kernels_k3_float(torch, mops, mref, gen, details):
-    """K3's float route (diagonals by the replayed search, the TPU's network
-    per 1024-wide window) at the key-only merge tail's shapes: whp round 1
-    and the exact round clipped to n_max, float32, and round 1 in bfloat16;
-    sorted rows with +inf tails, as the tail sees float keys. The plain
-    version runs on ``plain_rows`` rows."""
+    """K3's float route at the key-only merge tail's shapes — whp round 1
+    and the exact round clipped to n_max in float32, round 1 in bfloat16 —
+    on three kinds of rows (``k3_float_rows``): NaN-free rows and rows with
+    a ±0 band take the merge route, rows with NaNs the network route. Each
+    call gets the NaN flag as the merge tree hands it (one device byte);
+    each row prints how many reference spans the network merged
+    (``network_spans``). Bit for bit against the plain version on
+    ``plain_rows`` rows; NaN-free rows also against a stable sort of the
+    concatenated rows, ±0 band rows against its values and its count of
+    -0.0 keys. The bound counts the bytes of the merge and one comparison
+    an output."""
     errs = []
     summary = None
     for what, dtype, rows, w, out_w, plain_rows in (
             ("whp round 1", torch.float32, 8192, 1256, 2512, 256),
             ("exact round", torch.float32, 8192, 65536, 79008, 2),
             ("whp round 1", torch.bfloat16, 8192, 1256, 2512, 256)):
-        a = sorted_rows(torch, rows, w, torch.int32, gen, True).to(dtype)
-        b = sorted_rows(torch, rows, w, torch.int32, gen, True).to(dtype)
-        a = torch.where(a == float(torch.iinfo(torch.int32).max), float("inf"), a)
-        b = torch.where(b == float(torch.iinfo(torch.int32).max), float("inf"), b)
-        a, b = torch.sort(a, dim=-1).values.contiguous(), torch.sort(b, dim=-1).values.contiguous()
-        got = mops.merge_partitioned(a, b, width=out_w)
-        tile = min(mops.TILE, mops._pow2_at_least(w))
-        ap, bp = a[:plain_rows].contiguous(), b[:plain_rows].contiguous()
-        errs.append(max_abs_err(torch, got[:plain_rows], mref.merge_windows(ap, bp, tile, out_w),
-                                "kernels", f"K3 float {what} {dtype}"))
-        want = torch.sort(torch.cat([a, b], dim=-1), dim=-1, stable=True).values[:, :out_w]
-        if not torch.equal(bits(torch, got), bits(torch, want)):
-            fail("kernels", f"K3 float {what} {dtype}: not the merged rows")
-        # bytes: the inputs that reach the first out_w columns, and the output;
-        # operations: the network's compare-exchanges of every window
-        spans = -(-out_w // tile)
-        b_ms, b_by = bound(rows * (min(2 * w, out_w) + out_w) * a.element_size(),
-                           rows * spans * tile * int(math.log2(2 * tile)))
-        lib = library_timed(torch, lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1, stable=True))
-        d = dict(kernel="K3 float", round=what, dtype=str(dtype), shape=[rows, w], out_width=out_w,
-                 **timed(torch, lambda: mops.merge_partitioned(a, b, width=out_w)),
-                 bound_ms=b_ms, bound_by=b_by, plain_rows=plain_rows,
-                 plain_ms=time_ms(torch, lambda: mref.merge_windows(ap, bp, tile, out_w), target_ms=1),
-                 library_ms=lib["ms"], library_device_ms=lib["device_ms"])
-        details.append(d)
-        summary = summary or d
+        for kind in ("NaN-free", "±0 band", "NaN"):
+            a, b = k3_float_rows(torch, kind, dtype, rows, w, gen)
+            has_nan = torch.isnan(a).any() | torch.isnan(b).any()
+            got = mops.merge_partitioned(a, b, width=out_w, has_nan=has_nan)
+            tile = min(mops.TILE, mops._pow2_at_least(w))
+            ap, bp = a[:plain_rows].contiguous(), b[:plain_rows].contiguous()
+            errs.append(max_abs_err(torch, got[:plain_rows], mref.merge_windows(ap, bp, tile, out_w),
+                                    "kernels", f"K3 float {what} {dtype} {kind}"))
+            if kind != "NaN":
+                want = torch.sort(torch.cat([a, b], dim=-1), dim=-1, stable=True).values[:, :out_w]
+                same = (torch.equal(bits(torch, got), bits(torch, want)) if kind == "NaN-free" else
+                        torch.equal(got, want) and neg_zeros(torch, got) == neg_zeros(torch, want))
+                if not same:
+                    fail("kernels", f"K3 float {what} {dtype} {kind}: not the merged rows")
+            net, spans = network_spans(torch, mops, a, b, out_w, kind == "NaN")
+            b_ms, b_by = bound(rows * (min(2 * w, out_w) + out_w) * a.element_size(), rows * out_w)
+            lib = library_timed(torch, lambda: torch.sort(torch.cat([a, b], dim=-1), dim=-1, stable=True))
+            d = dict(kernel="K3 float", round=what, dtype=str(dtype), rows_kind=kind, shape=[rows, w],
+                     out_width=out_w, network_spans=net, reference_spans=spans,
+                     **timed(torch, lambda: mops.merge_partitioned(a, b, width=out_w, has_nan=has_nan)),
+                     bound_ms=b_ms, bound_by=b_by, plain_rows=plain_rows,
+                     plain_ms=time_ms(torch, lambda: mref.merge_windows(ap, bp, tile, out_w), target_ms=1),
+                     library_ms=lib["ms"], library_device_ms=lib["device_ms"])
+            details.append(d)
+            summary = summary or d
+            del a, b, got
     return dict(ms=summary["ms"], plain_ms=summary["plain_ms"], bound_ms=summary["bound_ms"],
                 bound_by=summary["bound_by"], library_ms=summary["library_ms"], max_abs_err=max(errs))
 
@@ -783,11 +874,10 @@ def kernels_k3(torch, mops, mref, gen, details):
     fb = choice[torch.randint(0, 5, (rows, w), device="cuda", generator=gen)]
     tile, _, _ = check(fa, fb, out_w, rows, "float32 ±0/NaN")
     check(fa[:512].to(torch.bfloat16), fb[:512].to(torch.bfloat16), 2000, 512, "bfloat16 ±0/NaN clipped")
-    spans = -(-out_w // tile)
-    lg = int(math.log2(2 * tile))
-    b_ms, _ = bound((2 * fa.numel() + rows * out_w) * 4, rows * spans * tile * lg)
+    nan = torch.isnan(fa).any() | torch.isnan(fb).any()
+    b_ms, _ = bound((2 * fa.numel() + rows * out_w) * 4, rows * out_w)
     details.append(dict(kernel="K3", round="float32 ±0.0/NaN windows", shape=[rows, w], out_width=out_w,
-                        **timed(torch, lambda: mops.merge_partitioned(fa, fb, width=out_w)),
+                        **timed(torch, lambda: mops.merge_partitioned(fa, fb, width=out_w, has_nan=nan)),
                         bound_ms=b_ms,
                         plain_ms=time_ms(torch, lambda: mref.merge_windows(fa, fb, tile, out_w)),
                         library_ms=library_timed(torch, lambda: torch.sort(torch.cat([fa, fb], dim=-1), dim=-1))["ms"]))
@@ -811,8 +901,12 @@ def stable_order(torch, x):
 
 
 def check_sort(torch, core, x, vals, res, pvals, stats, phase, what):
+    """Output bits equal ``torch.sort``'s; where float keys hold -0.0 and
+    +0.0, which tie, the values equal and the count of -0.0 keys is kept."""
     out = core.gathered_output(res)
-    if not torch.equal(bits(torch, out), bits(torch, sorted_reference(torch, x))):
+    want = sorted_reference(torch, x)
+    if not torch.equal(bits(torch, out), bits(torch, want)) and not (
+            x.is_floating_point() and torch.equal(out, want) and neg_zeros(torch, out) == neg_zeros(torch, x)):
         fail(phase, f"{what}: output is not the sorted input")
     if vals:
         counts = res.count.tolist()
@@ -1128,6 +1222,24 @@ def phase_ring_path(torch, core, build):
              ("det U+payload ring fused", dict(SLICE, routing="ring"), u, 1, [])]
     rows, launches = checked_runs(torch, core, build, "ring_path", specs)
     emit({"phase": "ring_path", "ok": True, "full": FULL, "runs": rows, "launches": launches})
+    return launches
+
+
+def phase_float_path(torch, core, build):
+    """SORT_DET_BSP on float32 keys at full width on the kernels' tree
+    merge: the U keys cast to float32, and the same keys with one in 16
+    replaced by -0.0 or +0.0 (the lowest keys, so the merge rows of a few
+    processors hold long bands of mixed zeros). No NaN: K3's float route
+    takes its merge route and must launch."""
+    u = torch.from_numpy(core.datagen.generate("U", FULL["p"], FULL["n_per_proc"])).cuda().float()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pick = torch.randint(0, 32, u.shape, device="cuda", generator=gen)
+    band = torch.where(pick == 0, -0.0, torch.where(pick == 1, 0.0, u))
+    k3 = ["bitonic_sort_tiles", "merge_sorted_tiles_float"]
+    specs = [("det float32 U", SLICE, u, 0, k3), ("det float32 U ±0 band", SLICE, band, 0, k3)]
+    rows, launches = checked_runs(torch, core, build, "float_path", specs)
+    emit({"phase": "float_path", "ok": True, "full": FULL, "neg_zeros": neg_zeros(torch, band),
+          "zeros": int((band == 0).sum()), "runs": rows, "launches": launches})
     return launches
 
 
@@ -1552,7 +1664,8 @@ def main() -> int:
     launches = dict.fromkeys(KERNEL_NAMES, 0)
     for counted in (phase_main_path(torch, core, build), phase_iran_path(torch, core, build),
                     phase_sort_kv_path(torch, bops, build), phase_radix_path(torch, core, build),
-                    phase_ring_path(torch, core, build), phase_segmented_path(torch, core, build),
+                    phase_ring_path(torch, core, build), phase_float_path(torch, core, build),
+                    phase_segmented_path(torch, core, build),
                     phase_obs_path(torch, core, build), phase_planner_path(torch, core, build),
                     phase_delta_path(torch, core, build)):
         for name in KERNEL_NAMES:

@@ -112,6 +112,7 @@ def merge_tree(
     values: Sequence[torch.Tensor] = (),
     backend: str = "xla",
     cap: Optional[int] = None,
+    has_nan: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
     """Merge every processor's (m, w) sorted padded runs into one run.
 
@@ -119,7 +120,10 @@ def merge_tree(
     (p, m, w, ...). Returns ((p, min(m·w, cap)) runs, payloads, (p,) counts).
     ``cap`` bounds the valid total, so every round is clipped to it and only
     pad slots are dropped. ``backend="pallas"``: key-only pairs take the
-    merge-path kernel, key-value pairs the rank kernel.
+    merge-path kernel, key-value pairs the rank kernel. ``has_nan`` (float
+    keys, key-only): a one-element device flag, True if the keys may hold a
+    NaN, handed to every round's merge kernel (no round adds a NaN); None
+    lets each round reduce its own.
     """
     sent = sentinel_for(runs.dtype)
     p, m, _ = runs.shape
@@ -134,7 +138,7 @@ def merge_tree(
         cb = counts[:, 1::2].reshape(half)
         w_out = 2 * w if cap is None else min(cap, 2 * w)
         if backend == "pallas" and not vals:
-            merged = mp_ops.merge_partitioned(a.contiguous(), b.contiguous(), width=w_out)
+            merged = mp_ops.merge_partitioned(a.contiguous(), b.contiguous(), w_out, has_nan)
             merged_counts = torch.clamp(ca + cb, max=w_out)
         else:
             va = [v[:, 0::2].reshape((half, w) + v.shape[3:]) for v in vals]

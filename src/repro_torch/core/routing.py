@@ -270,8 +270,13 @@ def route_and_merge(
     if cfg.merge == "tree" and cfg.routing != "ring":
         rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
         cap = cfg.n_max
+        has_nan = None
+        if cfg.merge_backend == "pallas" and not values and x_sorted.is_floating_point():
+            # one device flag for the whole tree, from the keys as they enter
+            # it: K3 takes its merge route when they hold no NaN
+            has_nan = torch.isnan(x_sorted).any()
         merged, mvals, count = merge_mod.merge_tree(
-            rows[0], rcounts, values=rows[1:], backend=cfg.merge_backend, cap=cap
+            rows[0], rcounts, values=rows[1:], backend=cfg.merge_backend, cap=cap, has_nan=has_nan
         )
         merged = _fit(merged, cap, sentinel_for(x_sorted.dtype))
         mvals = [_fit(v, cap, _PAYLOAD_PAD) for v in mvals]

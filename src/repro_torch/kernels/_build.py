@@ -43,9 +43,9 @@ SIGNATURES = {
     # row stride (S, or 0 for one row broadcast), row procs|NULL, S, B, row
     # flags (B int32 scratch), out, dtype, stream
     "repro_splitter_ranks": [_P, _I64, _P, _P, _I, _P, _I64, _P, _I64, _I64, _P, _P, _I, _P],
-    # a, b, out, span splits (int32 scratch), rows, width, out_width, span,
-    # dtype, stream
-    "repro_merge_path": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P],
+    # a, b, out, int32 scratch (splits | diagonals), rows, width, out_width,
+    # span, tile, NaN flag (device byte)|NULL, dtype, stream
+    "repro_merge_path": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

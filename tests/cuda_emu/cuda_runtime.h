@@ -1,11 +1,13 @@
 // A CPU stand-in for the parts of the CUDA runtime that csrc/bitonic_sort.cu
-// uses, so that its kernels can be compiled by a host C++20 compiler and
-// run on the CPU in the tests: one OS thread per CUDA thread, a
-// std::barrier per block for __syncthreads and one per warp for
-// __shfl_xor_sync. Blocks run one after another. The test rewrites the
-// source's dynamic shared-memory declaration to read `emu_smem` and each
-// `kernel<<<grid, block, smem, stream>>>(args)` to
-// `emu_launch(kernel, grid, block, smem, stream, args)`.
+// and csrc/merge_path.cu use, so that their kernels can be compiled by a
+// host C++20 compiler and run on the CPU in the tests: one OS thread per
+// CUDA thread, a std::barrier per block for __syncthreads and one per warp
+// for __shfl_xor_sync and __ballot_sync. Blocks run one after another. The
+// tests rewrite a source's dynamic shared-memory declaration to read
+// `emu_smem`, each `kernel<<<grid, block, smem, stream>>>(args)` to
+// `emu_launch(kernel, grid, block, smem, stream, args)`, and the cp.async
+// instructions to `emu_cp_async16` (a plain 16-byte copy, done at once)
+// and `emu_cp_async_wait` (nothing left to wait for).
 #pragma once
 
 #include <barrier>
@@ -26,17 +28,36 @@
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
 };
-inline thread_local dim3 threadIdx, blockIdx;
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F*, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+// One SM that holds one CTA, so a kernel that walks its work with a grid
+// sized to the card walks all of it here.
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 1;
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F*, int, size_t) {
+  *blocks = 1;
+  return cudaSuccess;
+}
 
 struct EmuWarp {
   uint64_t slot[32];
@@ -47,6 +68,28 @@ inline std::barrier<>* emu_block_barrier;
 inline unsigned char* emu_smem;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// Shared memory addresses are offsets into the block's buffer.
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return static_cast<size_t>(static_cast<const unsigned char*>(p) - emu_smem);
+}
+inline void emu_cp_async16(unsigned shared, const void* global) {
+  std::memcpy(emu_smem + shared, global, 16);
+}
+inline void emu_cp_async_wait() {}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  EmuWarp& w = *emu_warp;
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned lanes = blockDim.x - (threadIdx.x & ~31u) < 32 ? blockDim.x - (threadIdx.x & ~31u) : 32;
+  w.slot[lane] = pred != 0;
+  w.bar->arrive_and_wait();
+  unsigned mask = 0;
+  for (unsigned l = 0; l < lanes; ++l) mask |= static_cast<unsigned>(w.slot[l]) << l;
+  w.bar->arrive_and_wait();
+  return mask;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 template <class U>
 U __shfl_xor_sync(unsigned, U v, int mask) {
@@ -75,6 +118,7 @@ inline uint32_t __float_as_uint(float f) {
   std::memcpy(&u, &f, 4);
   return u;
 }
+inline int32_t __float_as_int(float f) { return static_cast<int32_t>(__float_as_uint(f)); }
 
 template <class Kernel, class... Args>
 void emu_launch(Kernel kernel, unsigned grid, unsigned block, size_t smem, cudaStream_t,
@@ -85,12 +129,15 @@ void emu_launch(Kernel kernel, unsigned grid, unsigned block, size_t smem, cudaS
     std::barrier<> block_barrier(block);
     emu_block_barrier = &block_barrier;
     std::vector<EmuWarp> warps((block + 31) / 32);
-    for (auto& w : warps) w.bar = std::make_unique<std::barrier<>>(block < 32 ? block : 32);
+    for (unsigned w = 0; w < warps.size(); ++w)
+      warps[w].bar = std::make_unique<std::barrier<>>(block - 32 * w < 32 ? block - 32 * w : 32);
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block; ++t) {
       threads.emplace_back([&, t] {
         threadIdx.x = t;
         blockIdx.x = b;
+        blockDim.x = block;
+        gridDim.x = grid;
         emu_warp = &warps[t / 32];
         kernel(args...);
       });

@@ -216,3 +216,52 @@ def test_bfloat16_noncanonical_nans_match_reference(cfg_kw, n_values):
     for rv, pv in zip(rvals, pvals):
         assert_bytes(rv, pv, "payload")
     assert stats.as_row() == rstats.as_row()
+
+
+DET_TREE_PALLAS = dict(algorithm="det", local_sort="bitonic", merge="tree", merge_backend="pallas",
+                       pair_capacity="whp")
+
+
+@pytest.mark.parametrize("keys", ["U", "U with a ±0.0 band", "signed_zeros", "nans"])
+def test_det_float32_on_the_kernels_tree_matches_reference(keys):
+    """det float32 with the tree merge on the kernels, as the full-width
+    float path runs it: U keys cast to float32, the same with one key in
+    16 replaced by -0.0 or +0.0, and the ±0.0 and NaN key sets."""
+    from repro_torch.core import datagen
+
+    if keys.startswith("U"):
+        x = datagen.generate("U", P, NP).astype(np.float32)
+        if keys != "U":
+            pick = np.random.default_rng(3).integers(0, 32, x.shape)
+            x = np.where(pick == 0, np.float32(-0.0), np.where(pick == 1, np.float32(0.0), x))
+    else:
+        x = float_keys(keys, seed=4)
+    run_both(x, DET_TREE_PALLAS, 0)
+
+
+@pytest.mark.parametrize("keyset", ["U", "nans"])
+def test_tree_tail_hands_the_kernel_one_nan_flag_a_rung(keyset, monkeypatch):
+    """Every K3 call of a float sort's tree tail gets the NaN flag reduced
+    once from the rung's keys, a one-element bool tensor (never read on the
+    host), False exactly when the keys hold no NaN; the bytes are those of
+    the flag-free merge."""
+    from repro_torch.core import SortConfig, datagen
+    from repro_torch.kernels.merge_path import ops as mops
+
+    x = datagen.generate("U", P, NP).astype(np.float32) if keyset == "U" else float_keys(keyset, seed=6)
+    cfg = SortConfig(p=P, n_per_proc=NP, **DET_TREE_PALLAS)
+    want, _, _ = bsp_sort_safe(torch.from_numpy(x), cfg, device="cpu")
+    flags = []
+    merge = mops.merge_partitioned
+
+    def spy(a, b, width=None, has_nan=None):
+        flags.append(has_nan)
+        return merge(a, b, width)
+
+    monkeypatch.setattr(mops, "merge_partitioned", spy)
+    got, _, _ = bsp_sort_safe(torch.from_numpy(x), cfg, device="cpu")
+    assert flags and len(flags) % 3 == 0  # lg 8 rounds a rung
+    for rung in range(0, len(flags), 3):
+        assert all(f is flags[rung] for f in flags[rung:rung + 3])
+    assert all(f.dtype == torch.bool and f.numel() == 1 and bool(f) == bool(np.isnan(x).any()) for f in flags)
+    assert torch.equal(got.buf.view(torch.int32), want.buf.view(torch.int32))

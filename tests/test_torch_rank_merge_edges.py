@@ -235,3 +235,61 @@ def test_int_span_covers_each_row(out_w):
     spans = -(-out_w // span)
     assert spans * span >= out_w > (spans - 1) * span
     assert spans == -(-out_w // (mops.THREADS * mops.MAX_ITEMS))
+
+
+def _zero_band_rows(rng, w: int, negatives, band: int, p_neg: float) -> np.ndarray:
+    """Sorted float rows: negatives, a band of zeros of drawn signs, positives."""
+    x = np.empty((len(negatives), w), np.float32)
+    for r, n in enumerate(negatives):
+        x[r] = np.sort(np.arange(w) % 200 + 1).astype(np.float32)
+        x[r, :n] = -np.sort(np.arange(n, 0, -1) % 200 + 1)[::-1]
+        x[r, n:n + band] = np.where(rng.random(min(band, w - n)) < p_neg, -0.0, 0.0)
+    return x
+
+
+@pytest.mark.parametrize("case", ["band across column 1024", "zero past the span end", "NaN rows"])
+def test_merge_partitioned_float_windows_match_reference(case):
+    """±0.0 bands whose windows straddle a 1024 boundary (the network's
+    bytes differ from a stable merge there), a -0.0 just past the first
+    span's a-slice, and rows with NaNs of both signs in place: the port's
+    window merge equals the JAX package's, at clipped widths too."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(29)
+    w = 1500
+    if case == "band across column 1024":
+        a = _zero_band_rows(rng, w, [30, 10, 2], 40, 0.5)
+        b = _zero_band_rows(rng, w, [990, 1010, 1020], 0, 0.0)
+    elif case == "zero past the span end":
+        a = _zero_band_rows(rng, w, [20], 11, 0.0)
+        a[0, 30] = -0.0
+        b = _zero_band_rows(rng, w, [1000], 0, 0.0)
+    else:
+        choice = np.asarray([-0.0, 0.0, 1.0, -1.0, np.inf], np.float32)
+        x = np.sort(choice[rng.integers(0, 5, (4, w))], axis=-1)
+        x[0, 700] = np.nan
+        x[1, -30:] = -np.nan
+        x[2, rng.choice(w, 50, replace=False)] = np.nan
+        x[3, ::97] = -np.nan
+        a, b = x[:2], x[2:]
+    want = np.asarray(_ref_ops("merge_path").merge_partitioned(jnp.asarray(a), jnp.asarray(b)))
+    for width in (2 * w, 1030, 2001):
+        got = mops.merge_partitioned(torch.from_numpy(a), torch.from_numpy(b), width=width)
+        assert_same(want[:, :width].view(np.int32), got.view(torch.int32), f"{case}, width {width}")
+
+
+@pytest.mark.parametrize("has_nan", [None, True, False])
+def test_merge_partitioned_nan_flag_keeps_the_bytes(has_nan):
+    """The NaN flag picks a route on the card only: the bytes are the
+    window merge's with it, without it, and whatever it says."""
+    rng = np.random.default_rng(30)
+    a = torch.from_numpy(_zero_band_rows(rng, 700, [300, 320], 60, 0.5))
+    b = torch.from_numpy(_zero_band_rows(rng, 700, [350, 200], 30, 0.5))
+    flag = None if has_nan is None else torch.tensor(has_nan)
+    want = mops.ref.merge_windows(a, b, 1024, 1400)
+    got = mops.merge_partitioned(a, b, has_nan=flag)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with pytest.raises(ValueError):
+        mops.merge_partitioned(a, b, has_nan=torch.tensor([True, False]))
+    with pytest.raises(ValueError):
+        mops.merge_partitioned(a, b, has_nan=torch.tensor(1))
