@@ -101,15 +101,41 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      operations under ``torch.profiler``. Phases 9–14 give the
                      same wall, busy and idle numbers per run, with its peak
                      memory, on their own lines.
+16. ``service_path``— (run after 14) the sort service,
+                     ``ServiceConfig(p=128, max_batch_keys=2^21,
+                     max_in_flight=2)``, on phase 11's 256 sizes with the
+                     keys of the reference's service mixes (U, G, B, DD,
+                     zipf): a warm service, then fresh services timed over
+                     submit-all + ``flush()`` at depth 2 and depth 1 (median
+                     of 3), every request checked against the stable sort,
+                     ``in_flight_peak`` 2; the overlap check (a launch must
+                     return while the earlier flight's device work runs:
+                     ``LaunchEvents``, with its blocking-copy control on U);
+                     busy, idle share, peak memory, latency p50/p99; then the
+                     open-loop soak (Poisson arrivals at 256 Hz, a burst,
+                     every request complete, no failsink error).
+17. ``chaos_path`` — the reference's chaos table at full width: a clean
+                     service, then one under its ``FaultPlan`` (capacity
+                     faults, poison rids 11 and 42, transient launch faults,
+                     two stragglers): no innocent fails, both poisons fail
+                     naming their rid, innocents byte-identical to the clean
+                     run; then a stream of 2^23 keys whose first fold (2^16
+                     keys) is corrupted and must fall back to a resort equal
+                     to a cold ``bsp_sort_safe``. Phases 16 and 17 launch no
+                     K1–K4 (their batches carry the position payload and
+                     ``ServiceConfig`` has no ``merge_backend``, as in the
+                     JAX package); the count is printed.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13 and 14, each counted from zero just before the
-phase's checked runs and read just after; the int64 routes of K2 and K3
-and K3's float route are listed and counted on their own),
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16 and 17, each counted from zero just
+before the phase's checked runs and read just after; the int64 routes of K2
+and K3 and K3's float route are listed and counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
-prints no result.
+prints no result. ``--phases service_path,chaos_path`` (any of the path
+phases 11, 13, 14, 16, 17) runs the build and those phases only, and
+prints no result line.
 """
 from __future__ import annotations
 
@@ -1373,17 +1399,6 @@ def planner_batch(core, mix):
     return np.split(keys, np.cumsum(sizes)[:-1])
 
 
-def plan_overrides(d):
-    """The segmented sort's overrides for a plan, as the JAX package's
-    service dispatcher builds them (``service/dispatch.py:605-617``)."""
-    ov = {"pair_capacity": d.pair_capacity}
-    if d.route == "radix":
-        ov["route"] = "radix"
-    elif d.pair_capacity == "planned":
-        ov.update(pair_cap_override=d.pair_cap_override, omega=d.omega)
-    return ov
-
-
 def phase_planner_path(torch, core, build):
     """The planned segmented sort as a service would drive it: fingerprint →
     plan → pack with the plan's layout → ``segmented_sort_safe`` with the
@@ -1396,6 +1411,7 @@ def phase_planner_path(torch, core, build):
     DD sorts through ``bsp_sort_safe(planner=...)`` until the planner has
     promoted their bucket to the exact rung, and the run that starts there."""
     from repro_torch import planner as planner_mod
+    from repro_torch.service.dispatch import plan_overrides
 
     p = FULL["p"]
     planner = planner_mod.CapacityPlanner()
@@ -1581,6 +1597,379 @@ def phase_delta_path(torch, core, build):
     return launches
 
 
+SERVICE_MIXES = ("U", "G", "B", "DD", "zipf")
+SERVICE = dict(p=FULL["p"], max_batch_keys=2**21, max_in_flight=2)
+
+
+def service_requests(core, mix, seed0):
+    """``segmented_batch``'s 256 Zipf(1.2) sizes (2^23 keys in all), request
+    i holding keys of ``mix`` drawn with seed ``seed0 + i`` (the JAX
+    package's ``table_service`` and ``table_chaos`` inputs at this width)."""
+    sizes = [len(a) for a in segmented_batch(core)]
+    return [core.datagen.generate(mix, 1, n, seed=seed0 + i)[0] for i, n in enumerate(sizes)]
+
+
+def stable_sorts(torch, arrays):
+    """Each request's sorted keys and stable argsort, as numpy, by the
+    library's stable sort on the card."""
+    out = []
+    for a in arrays:
+        s = torch.sort(torch.from_numpy(a).cuda(), stable=True)
+        out.append((s.values.cpu().numpy(), s.indices.cpu().numpy()))
+    return out
+
+
+def check_futures(futs, want, phase, what, skip=()):
+    import numpy as np
+
+    for i, (f, (keys, order)) in enumerate(zip(futs, want)):
+        if i in skip:
+            continue
+        r = f.result()
+        if not (np.array_equal(r.keys, keys) and np.array_equal(r.order, order)):
+            fail(phase, f"{what}: request {i} is not its stable sort")
+
+
+class LaunchEvents:
+    """Wraps the dispatch module's ``segmented_sort_launch`` (in this script,
+    not in the package): a CUDA event is recorded right after each launch
+    returns, and at the return of an overlapped launch (another flight in
+    the dispatcher) the previous launch's event is queried. A pending event
+    there means the launch returned while the earlier flight's device work
+    was still running: the launch path did not wait for the stream.
+
+    The service's host work between two launches (plan and pack of the next
+    batch) can outlast a flight's device work, and then every event is done
+    whatever the launch path does. ``spacer_s`` makes the check independent
+    of that ratio: after each launch the card spins for that long
+    (``torch.cuda._sleep``) before the event, so a launch that returns with
+    the event pending has not waited for the stream. Each launch also
+    counts the synchronizing CUDA calls it made
+    (``torch.cuda.set_sync_debug_mode``), by source line."""
+
+    NAMES = ("segmented_sort_launch", "near_sorted_sort_launch")
+
+    def __init__(self, torch, dispatch, spacer_s=0.0):
+        self.torch, self.dispatch, self.spacer_s = torch, dispatch, spacer_s
+        self.orig = {name: getattr(dispatch, name) for name in self.NAMES}
+        self.dispatcher = None
+        self.rows = []
+        self.last = None
+
+    def _wrap(self, orig, describe):
+        import warnings
+
+        torch = self.torch
+
+        def launch(*args, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode(1)
+                t0 = time.perf_counter()
+                try:
+                    inflight = orig(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                host_ms = (time.perf_counter() - t0) * 1e3
+            syncs = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                            if "synchroniz" in str(w.message)})
+            if self.spacer_s:
+                torch.cuda._sleep(int(self.spacer_s * torch.cuda.clock_rate() * 1e6))
+            ev = torch.cuda.Event()
+            ev.record()
+            overlapped = self.dispatcher is not None and self.dispatcher.in_flight >= 1
+            pending = overlapped and self.last is not None and not self.last.query()
+            self.rows.append(dict(describe(*args, **kw), overlapped=overlapped, prev_pending=pending,
+                                  launch_ms=host_ms, syncs=syncs))
+            self.last = ev
+            return inflight
+
+        return launch
+
+    def __enter__(self):
+        self.dispatch.segmented_sort_launch = self._wrap(
+            self.orig["segmented_sort_launch"],
+            lambda packed, **kw: dict(segments=len(packed.sizes), keys=packed.n_keys,
+                                      route=kw.get("route", "sample")))
+        self.dispatch.near_sorted_sort_launch = self._wrap(
+            self.orig["near_sorted_sort_launch"],
+            lambda keys, p, **kw: dict(segments=1, keys=len(keys), route="delta"))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dispatch, name, fn)
+        return False
+
+    def summary(self):
+        over = [r for r in self.rows if r["overlapped"]]
+        return dict(launches=len(self.rows), overlapped=len(over), prev_pending=sum(r["prev_pending"] for r in over),
+                    radix_launches=sum(r["route"] == "radix" for r in self.rows),
+                    delta_launches=sum(r["route"] == "delta" for r in self.rows),
+                    launch_ms_max=max((r["launch_ms"] for r in self.rows), default=0.0),
+                    syncs=sorted({x for r in self.rows for x in r["syncs"]}))
+
+
+def blocking_copies():
+    """A context in which the launch path's host-to-device copies are the
+    blocking ``.to(device)`` of the tree before the pinned asynchronous
+    copy (``core.types.to_device``): the overlap check's control."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import api, segmented, splitters
+    from repro_torch.delta import fold
+
+    @contextlib.contextmanager
+    def ctx():
+        mods = (api, segmented, splitters, fold)
+        saved = [m.to_device for m in mods]
+        for m in mods:
+            m.to_device = lambda a, device: torch.as_tensor(a).to(torch.device(device))
+        try:
+            yield
+        finally:
+            for m, f in zip(mods, saved):
+                m.to_device = f
+
+    return ctx()
+
+
+def timed_flush(torch, svc, arrays):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [svc.submit(a) for a in arrays]
+    svc.flush()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, futs
+
+
+def phase_service_path(torch, core, build):
+    """The sort service at full width: ``ServiceConfig(p=128,
+    max_batch_keys=2^21, max_in_flight=2)`` with the JAX package's other
+    defaults (iran, the planner's starting tiers, lax local sort, merge by
+    sort), on ``segmented_batch``'s 256 sizes with the keys of
+    ``table_service``'s mixes. Per mix: one warm service, then fresh
+    services timed over submit-all + ``flush()`` (median of 3) at depth 2
+    and at depth 1, every future of every run checked against the stable
+    sort; the overlap check (``LaunchEvents``) read plain on the timed
+    depth-2 runs and required, with the card spacer, on one more run (the
+    first mix also runs the spacer check with blocking copies, the
+    control); device busy time and idle share over one profiled flush.
+    Then the open-loop soak of ``table_service_soak`` at this width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.service import ServiceConfig, SortService
+    from repro_torch.service import dispatch
+
+    build.reset_counts()
+    rows = []
+
+    def overlap_run(arrays, want, what):
+        with LaunchEvents(torch, dispatch, spacer_s=0.5) as le:
+            svc = SortService(ServiceConfig(**SERVICE))
+            le.dispatcher = svc.dispatcher
+            _, futs = timed_flush(torch, svc, arrays)
+        check_futures(futs, want, "service_path", what)
+        return le.summary()
+
+    for mix in SERVICE_MIXES:
+        arrays = service_requests(core, mix, 100)
+        want = stable_sorts(torch, arrays)
+        torch.cuda.reset_peak_memory_stats()
+        first, futs = timed_flush(torch, SortService(ServiceConfig(**SERVICE)), arrays)
+        check_futures(futs, want, "service_path", f"{mix} warm")
+        walls, tele = {}, None
+        with LaunchEvents(torch, dispatch) as plain:
+            for depth in (2, 1):
+                ws = []
+                for _ in range(3):
+                    svc = SortService(ServiceConfig(**dict(SERVICE, max_in_flight=depth)))
+                    plain.dispatcher = svc.dispatcher
+                    wall, futs = timed_flush(torch, svc, arrays)
+                    check_futures(futs, want, "service_path", f"{mix} depth {depth}")
+                    ws.append(wall * 1e3)
+                    if depth == 2:
+                        tele = svc.telemetry()
+                        if tele["batches"] >= 2 and tele["dispatch"]["in_flight_peak"] != 2:
+                            fail("service_path", f"{mix}: in_flight_peak {tele['dispatch']['in_flight_peak']}")
+                walls[depth] = ws
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        spaced = overlap_run(arrays, want, f"{mix} overlap check")
+        if not spaced["prev_pending"]:
+            fail("service_path", f"{mix}: no overlapped launch returned before the earlier flight's event: {spaced}")
+        control = None
+        if mix == SERVICE_MIXES[0]:
+            with blocking_copies():
+                control = overlap_run(arrays, want, f"{mix} overlap control")
+            if control["prev_pending"]:
+                fail("service_path", f"{mix}: the control (blocking copies) found a pending event: {control}")
+        svc = SortService(ServiceConfig(**SERVICE))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_wall, futs = timed_flush(torch, svc, arrays)
+        check_futures(futs, want, "service_path", f"{mix} profiled")
+        busy = sum(ms for ms, _ in device_split(torch, prof).values())
+        wall2 = statistics.median(walls[2])
+        d = tele["dispatch"]
+        rows.append(dict(mix=mix, requests=len(arrays), keys=KEYS, batches=tele["batches"], buckets=tele["buckets"],
+                         start_tiers=tele["start_tiers"], retries=tele["retries"],
+                         in_flight_peak=d["in_flight_peak"], overlapped_launches=d["overlapped_launches"],
+                         overlap_plain=plain.summary(), overlap_check=spaced, overlap_control=control,
+                         first_s=first, wall_ms_depth2=wall2, walls_ms_depth2=walls[2],
+                         wall_ms_depth1=statistics.median(walls[1]), walls_ms_depth1=walls[1],
+                         keys_per_s=KEYS / (wall2 / 1e3), device_busy_ms=busy,
+                         idle_share=max(0.0, 1 - busy / wall2), profiled_wall_ms=prof_wall * 1e3,
+                         peak_mem_gib=peak, lat_p50_ms=tele["lat_p50_ms"], lat_p99_ms=tele["lat_p99_ms"],
+                         launch_rows=plain.rows[:6]))
+        torch.cuda.empty_cache()
+    soak = service_soak(torch, core)
+    launches = build.counts()
+    emit({"phase": "service_path", "ok": True, "config": SERVICE, "runs": rows, "soak": soak, "launches": launches})
+    return launches
+
+
+def service_soak(torch, core):
+    """``table_service_soak``'s open loop at this width: the zipf mix's 256
+    requests arrive on a seeded Poisson clock at 256 Hz, each followed by
+    ``flush_ready()``; then a burst of 16 requests of 2^21 / 8 keys and a
+    closing ``flush()``. Every request checked; no failsink error."""
+    import numpy as np
+
+    from repro_torch.service import ServiceConfig, SortService
+
+    arrays = service_requests(core, "zipf", 300)
+    burst = [core.datagen.generate("zipf", 1, SERVICE["max_batch_keys"] // 8, seed=600 + i)[0] for i in range(16)]
+    gaps = np.random.default_rng(21).exponential(1.0 / 256.0, len(arrays))
+    arrivals = np.cumsum(gaps)
+    cfg = ServiceConfig(**SERVICE)
+    SortService(cfg).sort_many(arrays + burst)  # warm
+    want = stable_sorts(torch, arrays + burst)
+    svc = SortService(cfg)
+    futs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, a in enumerate(arrays):  # open loop: the schedule never waits for the service
+        lag = arrivals[i] - (time.perf_counter() - t0)
+        if lag > 0:
+            time.sleep(lag)
+        futs.append(svc.submit(a))
+        svc.flush_ready()
+    futs += [svc.submit(a) for a in burst]
+    svc.flush()
+    wall = time.perf_counter() - t0
+    check_futures(futs, want, "service_path", "soak")
+    tele = svc.telemetry()
+    if tele["dispatch"]["failsink_errors"]:
+        fail("service_path", f"soak: {tele['dispatch']['failsink_errors']} failsink errors")
+    n_keys = int(sum(a.size for a in arrays + burst))
+    return dict(requests=len(futs), keys=n_keys, arrival_hz=256.0, complete=True,
+                failsink_errors=tele["dispatch"]["failsink_errors"], batches=tele["batches"],
+                in_flight_peak=tele["dispatch"]["in_flight_peak"],
+                overlapped_launches=tele["dispatch"]["overlapped_launches"], wall_s=wall, keys_per_s=n_keys / wall,
+                lat_p50_ms=tele["lat_p50_ms"], lat_p99_ms=tele["lat_p99_ms"], lat_mean_ms=tele["lat_mean_ms"],
+                retries=tele["retries"], flush_triggers=tele["flush_triggers"])
+
+
+def phase_chaos_path(torch, core, build):
+    """``table_chaos`` at full width: the 256 sizes with zipf keys (seed
+    900 + i) under ``service_path``'s config, a clean service, then one
+    under the table's ``FaultPlan`` (capacity faults, two poison rids,
+    transient launch faults, two straggled flights). Innocents complete
+    with the clean run's bytes; both poisons fail naming their rid. Then a
+    stream: 2^23 keys install the view, 2^16 more fold into it, and that
+    fold (fold sequence 0) is corrupted: it must fall back to a resort
+    equal to a cold ``bsp_sort_safe`` of the concatenation."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.chaos import FaultPlan
+    from repro_torch.service import ServiceConfig, SortService, SortServiceError
+
+    build.reset_counts()
+    arrays = service_requests(core, "zipf", 900)
+    poison = (11, 42)
+    cfg = ServiceConfig(**SERVICE)
+    SortService(cfg).sort_many(arrays)  # warm
+    ref_svc = SortService(cfg)
+    ref_futs = [ref_svc.submit(a) for a in arrays]
+    ref_svc.flush()
+    want = [(f.result().keys, f.result().order) for f in ref_futs]
+    check_futures(ref_futs, stable_sorts(torch, arrays), "chaos_path", "clean run")
+    plan = FaultPlan(seed=23, capacity_fault_rate=0.25, capacity_fault_rungs=(0,), poison_rids=poison,
+                     transient_error_rate=0.35, straggle_flights=(1, 5), straggle_s=0.002)
+    svc = SortService(ServiceConfig(**SERVICE, chaos=plan))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [svc.submit(a) for a in arrays]
+    svc.flush()
+    wall = time.perf_counter() - t0
+    innocents_failed = poison_failed = 0
+    for f in futs:
+        exc = f.exception()
+        if f.rid in poison:
+            poison_failed += isinstance(exc, SortServiceError) and f"rid={f.rid}" in str(exc)
+        elif exc is not None:
+            innocents_failed += 1
+    check_futures(futs, want, "chaos_path", "faulted run against the clean run", skip=poison)
+    tele = svc.telemetry()
+    inj = plan.injected
+    launch_faults = inj.get("launch_error", 0) + inj.get("poison", 0)
+    if innocents_failed or poison_failed != 2:
+        fail("chaos_path", f"innocents_failed {innocents_failed}, poison_failed {poison_failed}")
+    if not (inj.get("capacity_fault", 0) >= 1 and launch_faults >= 1 and tele["dispatch"]["recovered_batches"] >= 1):
+        fail("chaos_path", f"faults not exercised: injected {inj}, dispatch {tele['dispatch']}")
+    run = dict(requests=len(arrays), keys=KEYS, poison=list(poison), innocents_failed=innocents_failed,
+               poison_failed=poison_failed, byte_identical=True, injected=inj, injected_total=plan.injected_total,
+               recovered_batches=tele["dispatch"]["recovered_batches"],
+               failsink_splits=tele["dispatch"]["failsink_splits"],
+               failsink_solo_retries=tele["dispatch"]["failsink_solo_retries"],
+               breaker_opened=tele["dispatch"]["breaker_opened"], batches=tele["batches"],
+               start_tiers=tele["start_tiers"], retries=tele["retries"], wall_s=wall,
+               clean_lat_p99_ms=ref_svc.telemetry()["lat_p99_ms"], lat_p99_ms=tele["lat_p99_ms"],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del ref_svc, ref_futs, svc, futs, want
+    torch.cuda.empty_cache()
+
+    # the stream: install 2^23 keys, fold 2^16 with the fold corrupted
+    rng = np.random.default_rng(31)
+    first = rng.integers(-(2**31), 2**31, KEYS, dtype=np.int64).astype(np.int32)
+    more = rng.integers(-(2**31), 2**31, KEYS // 128, dtype=np.int64).astype(np.int32)
+    splan = FaultPlan(corrupt_folds=(0,))
+    ssvc = SortService(ServiceConfig(**SERVICE, chaos=splan))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r1 = ssvc.submit(first, stream="s").result()
+    install_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r2 = ssvc.submit(more, stream="s").result()
+    fold_s = time.perf_counter() - t0
+    view = ssvc.dispatcher._stream_views["s"]
+    fallbacks = {str(lbl["view"]): c.value
+                 for lbl, c in obs.metrics().collect("delta.fold_fallback_resorts")}.get(view.label, 0)
+    if splan.injected != {"fold_corruption": 1} or fallbacks != 1:
+        fail("chaos_path", f"stream: injected {splan.injected}, fold_fallback_resorts {fallbacks}")
+    cat = np.concatenate([first, more])
+    p = FULL["p"]
+    xt = torch.from_numpy(cat).cuda().reshape(p, -1)
+    cold, cvals, _ = core.bsp_sort_safe(xt, core.SortConfig(p=p, n_per_proc=xt.shape[1], pair_capacity="exact"),
+                                        values=[torch.arange(cat.size, device="cuda").reshape(p, -1)])
+    cold_order = torch.cat([cvals[0][k, :c] for k, c in enumerate(cold.count.tolist())]).cpu().numpy()
+    if not (np.array_equal(r2.keys, core.gathered_output(cold).cpu().numpy()) and np.array_equal(r2.order, cold_order)):
+        fail("chaos_path", "stream: the fold's fallback differs from the cold sort")
+    if not np.array_equal(r1.keys, np.sort(first)):
+        fail("chaos_path", "stream: the installed view is not the sort of the first submit")
+    stream = dict(installed=first.size, folded=more.size, injected=splan.injected, fold_fallback_resorts=fallbacks,
+                  tier=r2.tier, install_s=install_s, fold_s=fold_s,
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del ssvc, view, xt, cold, cvals
+    torch.cuda.empty_cache()
+    launches = build.counts()
+    emit({"phase": "chaos_path", "ok": True, "config": SERVICE, "run": run, "stream": stream, "launches": launches})
+    return launches
+
+
 def adversarial(p, n_p):
     import numpy as np
 
@@ -1658,6 +2047,15 @@ def main() -> int:
     emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
           "ptxas": ptxas_report(build.build_log())})
 
+    if len(sys.argv) > 2 and sys.argv[1] == "--phases":
+        # a quicker run of some path phases only, for work on one of them;
+        # it prints no kernels line and no result line
+        paths = {"service_path": phase_service_path, "chaos_path": phase_chaos_path,
+                 "segmented_path": phase_segmented_path, "planner_path": phase_planner_path,
+                 "delta_path": phase_delta_path}
+        for name in sys.argv[2].split(","):
+            paths[name](torch, core, build)
+        return 0
     entries = phase_kernels(torch, (bops, bref, sops, sref, mops, mref))
     phase_small_parity(torch, core)
     # launches over the path phases, each counted from zero by the phase
@@ -1670,6 +2068,17 @@ def main() -> int:
                     phase_delta_path(torch, core, build)):
         for name in KERNEL_NAMES:
             launches[name] += counted.get(name, 0)
+    # the service paths launch none of K1-K4: their batches carry the
+    # position payload (Ph2 takes the stable sort) and ServiceConfig has no
+    # merge_backend (the tree merge's kernels are not asked for), as in the
+    # JAX package
+    service_launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for counted in (phase_service_path(torch, core, build), phase_chaos_path(torch, core, build)):
+        for name in KERNEL_NAMES:
+            service_launches[name] += counted.get(name, 0)
+            launches[name] += counted.get(name, 0)
+    emit({"phase": "service_launches", "ok": True, "launches": service_launches,
+          "none_as_expected": not any(service_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 

@@ -21,7 +21,9 @@ Public API:
     config_from_reference,
     prepared_from_reference,
     planner_from_reference,
-    view_from_reference                  — carry state from the JAX package
+    view_from_reference,
+    fault_plan_from_reference,
+    service_config_from_reference        — carry state from the JAX package
     datagen                              — §6.3 benchmark input distributions
 """
 from .api import (
@@ -36,7 +38,14 @@ from .api import (
     phase_fns,
 )
 from .bsp import BSPMachine, CRAY_T3D, Prediction, predict, theoretical_max_imbalance
-from .convert import config_from_reference, planner_from_reference, prepared_from_reference, view_from_reference
+from .convert import (
+    config_from_reference,
+    fault_plan_from_reference,
+    planner_from_reference,
+    prepared_from_reference,
+    service_config_from_reference,
+    view_from_reference,
+)
 from .segmented import (
     InFlightSegmentedSort,
     PackedSegments,
@@ -69,6 +78,7 @@ __all__ = [
     "config_from_reference",
     "datagen",
     "default_executor",
+    "fault_plan_from_reference",
     "gathered_output",
     "pack_segments",
     "phase_fns",
@@ -76,6 +86,7 @@ __all__ = [
     "predict",
     "prepared_from_reference",
     "segmented_sort_launch",
+    "service_config_from_reference",
     "segmented_sort_safe",
     "sentinel_for",
     "sort_segments",

@@ -41,6 +41,8 @@ closed at the rung's overflow read, and the distribution and host-sync
 points (``repro_torch.obs``); an untraced run adds no host sync.
 ``planner=`` (a :class:`repro_torch.planner.CapacityPlanner`) starts the
 ladder at the rung its history learned for the sort's shape.
+``SortConfig(chaos=plan)`` (``repro_torch.chaos``) injects capacity faults
+at the overflow read of non-terminal rungs.
 :func:`phase_fns` gives the paper's Ph2–Ph6 as separate callables. The
 sharded runner (``bsp_sort_sharded``) is not ported yet.
 """
@@ -53,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..chaos import resolve_chaos
 from ..obs import REGISTRY as _OBS
 from ..obs import resolve_tracer
 from . import merge as merge_mod
@@ -65,7 +68,7 @@ from .sort_iran import prepare_iran_spmd, route_iran_spmd
 from .sort_radix import host_send_counts, prepare_radix_spmd, route_radix_spmd
 from .sort_ran import prepare_ran_spmd, route_ran_spmd
 from .splitters import sample_positions
-from .types import PreparedSort, SortConfig, SortResult, resolve_device
+from .types import PreparedSort, SortConfig, SortResult, resolve_device, to_device
 
 
 def _prepare_bitonic_spmd(x, cfg, values=()) -> PreparedSort:
@@ -104,11 +107,11 @@ def _inputs(x, values, device) -> Tuple[torch.Tensor, List[torch.Tensor], torch.
     """Tensors on the run's device, uint32 keys biased to int32; and the
     keys' own dtype, which :func:`_result` restores."""
     dev = resolve_device(device)
-    x = torch.as_tensor(x, device=dev)
+    x = to_device(x, dev)
     key_dtype = x.dtype
     if key_dtype == torch.uint32:
         x = prim.bias_unsigned(x)
-    return x, [torch.as_tensor(v, device=dev) for v in values], key_dtype
+    return x, [to_device(v, dev) for v in values], key_dtype
 
 
 def _config(x: torch.Tensor, cfg: Optional[SortConfig], overrides) -> SortConfig:
@@ -288,6 +291,12 @@ class InFlightSort:
     span per rung, opened at its launch and closed at its overflow read,
     with the rung's h-relation size, superstep count and received-key
     balance; the counts are read after the flag, the sync already made.
+
+    ``chaos`` (a :class:`repro_torch.chaos.FaultPlan`) draws the sort's
+    sequence number at construction, as the JAX package does; :meth:`wait`
+    then flips a clean, non-terminal rung's decision to a fault when the
+    plan's ``fault_capacity(sort_seq, rung)`` says so. The escalation it
+    forces is the real one, and the next rung's result is the clean run's.
     """
 
     def __init__(
@@ -300,6 +309,7 @@ class InFlightSort:
         on_complete: Optional[Callable] = None,
         tracer=None,
         trace_meta: Optional[Dict] = None,
+        chaos=None,
     ) -> None:
         self.stats = stats if stats is not None else TierStats()
         self._ladder = ladder
@@ -307,6 +317,8 @@ class InFlightSort:
         self._scope = scope if scope is not None else contextlib.nullcontext
         self._on_complete = on_complete
         self._tracer = tracer
+        self._chaos = chaos
+        self._chaos_key = chaos.next_sort() if chaos is not None else 0
         self._meta = trace_meta if trace_meta is not None else {}
         #: timeline lane of this sort's spans (None when untraced); the
         #: segmented sort attaches its own points to it
@@ -359,6 +371,16 @@ class InFlightSort:
             tier, tier_cfg = self._ladder[self._i]
             t_sync = self._tracer.now() if self._tracer is not None else 0.0
             ok = not bool(res.overflow)  # host sync: the retry decision point
+            if (
+                ok
+                and self._chaos is not None
+                and self._i + 1 < len(self._ladder)  # the terminal rung is never faulted
+                and self._chaos.fault_capacity(self._chaos_key, self._i)
+            ):
+                ok = False  # injected capacity fault: walk the next rung
+                if self._tracer is not None:
+                    self._tracer.point("chaos_capacity_fault", cat="chaos", tid=self.trace_tid or "main",
+                                       rung=self._i, tier=tier)
             if self._tracer is not None:
                 self._record_route(res, tier, tier_cfg, ok, t_sync)
             self.stats.record(tier, ok)
@@ -514,11 +536,12 @@ def bsp_sort_safe_launch(
     x, values, key_dtype = _inputs(x, values, device)
     cfg = _config(x, cfg, overrides)
     tracer = resolve_tracer(cfg.obs)
-    if cfg.obs is not None:
-        # the tracer stays a local: the ladder and the executor see obs=None
-        # (it is not part of the config's hash anyway), so no registry key
-        # ever holds a tracer
-        cfg = dataclasses.replace(cfg, obs=None)
+    chaos = resolve_chaos(cfg.chaos)
+    if cfg.obs is not None or cfg.chaos is not None:
+        # the tracer and the fault plan stay locals: the ladder and the
+        # executor see obs=None and chaos=None (neither is part of the
+        # config's hash anyway), so no registry key ever holds one
+        cfg = dataclasses.replace(cfg, obs=None, chaos=None)
     meta = _trace_meta_for(tracer, x, values)
     ex = executor if executor is not None else _EXECUTOR
     nv = len(values)
@@ -572,7 +595,7 @@ def bsp_sort_safe_launch(
             return _result(*ex.route_vmap(tier_cfg, nv)(prep, positions), key_dtype)
 
     return InFlightSort(ladder, stats, run_tier, scope=scope, on_complete=on_complete, tracer=tracer,
-                        trace_meta=meta)
+                        trace_meta=meta, chaos=chaos)
 
 
 def bsp_sort_safe(

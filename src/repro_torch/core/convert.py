@@ -5,9 +5,10 @@ The JAX package's ``SortConfig`` and ``PreparedSort`` arrive as plain data
 test can then run the reference's prepare stage, carry its state across,
 and hold the port's route stage (Ph4–Ph6) alone against the reference's.
 A capacity planner's JSON history (the reference's
-``CapacityPlanner.save``) loads into the port's planner, and a sorted
+``CapacityPlanner.save``) loads into the port's planner, a sorted
 view's snapshot (keys and payloads as numpy) installs into the port's
-``SortedView``.
+``SortedView``, and a ``FaultPlan`` or a ``ServiceConfig`` carries every
+field across, so both packages run one seeded fault schedule.
 """
 from __future__ import annotations
 
@@ -19,23 +20,52 @@ import torch
 
 from .types import PreparedSort, SortConfig, resolve_device
 
-#: the JAX package's host-side handles, which the port has no use for
-_HOST_HANDLES = ("obs", "chaos")
+def _fields_from_reference(fields: Mapping, cls) -> dict:
+    """Keyword arguments of the port's ``cls`` from a reference dataclass's
+    fields: a fault plan is converted, a tracer refused (a reference
+    ``Tracer`` means nothing to the port; pass ``obs=None``)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for key, value in fields.items():
+        if key not in names:
+            raise ValueError(f"unknown {cls.__name__} field {key!r}")
+        if key == "obs" and value is not None:
+            raise ValueError("the port cannot use the reference's 'obs' handle; pass obs=None")
+        if key == "chaos" and value is not None:
+            value = fault_plan_from_reference(value)
+        kwargs[key] = value
+    return kwargs
 
 
 def config_from_reference(fields: Mapping) -> SortConfig:
     """A port ``SortConfig`` from the reference config's fields as a dict."""
-    names = {f.name for f in dataclasses.fields(SortConfig)}
-    kwargs = {}
-    for key, value in fields.items():
-        if key in _HOST_HANDLES:
-            if value is not None:
-                raise ValueError(f"the port has no {key!r} handle; pass {key}=None")
-            continue
-        if key not in names:
-            raise ValueError(f"unknown SortConfig field {key!r}")
-        kwargs[key] = value
-    return SortConfig(**kwargs)
+    return SortConfig(**_fields_from_reference(fields, SortConfig))
+
+
+def fault_plan_from_reference(plan):
+    """A port ``FaultPlan`` with every field of the JAX package's plan.
+
+    Fields only: the port's plan starts a fresh schedule (its sequence
+    numbers, fired sets and injection counts at zero), so both plans give
+    the same decisions on the same sequence of queries.
+    """
+    from ..chaos import FaultPlan
+
+    return FaultPlan(**_fields_from_reference(_asdict(plan), FaultPlan))
+
+
+def service_config_from_reference(cfg):
+    """A port ``ServiceConfig`` with every field of the JAX package's (its
+    fault plan converted by :func:`fault_plan_from_reference`)."""
+    from ..service import ServiceConfig
+
+    return ServiceConfig(**_fields_from_reference(_asdict(cfg), ServiceConfig))
+
+
+def _asdict(obj) -> dict:
+    """A dataclass instance's fields, shallow (``dataclasses.asdict`` would
+    deep-copy a fault plan held in a field)."""
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:

@@ -149,8 +149,8 @@ def canonical_nans(x: torch.Tensor) -> torch.Tensor:
     if x.dtype != torch.bfloat16:
         return x
     b = x.view(torch.int16)
-    quiet = torch.where(b < 0, torch.tensor(-64, dtype=torch.int16, device=x.device),  # 0xffc0
-                        torch.tensor(0x7FC0, dtype=torch.int16, device=x.device))
+    quiet = torch.where(b < 0, torch.full((), -64, dtype=torch.int16, device=x.device),  # 0xffc0
+                        torch.full((), 0x7FC0, dtype=torch.int16, device=x.device))
     return torch.where((b & 0x7FFF) > 0x7F80, quiet, b).view(torch.bfloat16)
 
 

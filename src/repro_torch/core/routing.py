@@ -128,7 +128,7 @@ def _segment_rows(
         g = prim.take_rows(a, idx).reshape((p, p, width) + a.shape[2:])
         fill = key_sentinel if i == 0 else _PAYLOAD_PAD
         mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
-        rows.append(torch.where(mask, g, torch.tensor(fill, dtype=a.dtype, device=a.device)))
+        rows.append(torch.where(mask, g, torch.full((), fill, dtype=a.dtype, device=a.device)))
     rows[0] = prim.canonical_nans(rows[0])  # the key rows' where computes on them
     return rows
 
@@ -179,7 +179,7 @@ def recv_rows(
             g = prim.all_gather(a)[torch.arange(p, device=a.device)[:, None, None], src, idx.long()]
             fill = sent if i == 0 else _PAYLOAD_PAD
             mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
-            rows.append(torch.where(mask, g, torch.tensor(fill, dtype=a.dtype, device=a.device)))
+            rows.append(torch.where(mask, g, torch.full((), fill, dtype=a.dtype, device=a.device)))
         rows[0] = prim.canonical_nans(rows[0])
         over = rcounts.sum(dim=1) > cfg.n_max
         return rows, rcounts, over.any().expand(p)

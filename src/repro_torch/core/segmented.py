@@ -39,7 +39,7 @@ import torch
 
 from ..obs import resolve_tracer
 from .api import InFlightSort, SortExecutor, TierStats, bsp_sort_safe_launch, gathered_output
-from .types import SortConfig, resolve_device
+from .types import SortConfig, resolve_device, to_device
 
 #: bits of the composite holding the (biased) key; segment id sits above.
 SEG_SHIFT = 32
@@ -176,10 +176,11 @@ def pack_segments(
 
 @dataclasses.dataclass
 class SegmentedResult:
-    """Per-segment outputs of one fused sort, in submit order."""
+    """Per-segment outputs of one fused sort, in submit order: tensors on
+    the run's device, or numpy arrays from ``wait(host=True)``."""
 
-    keys: List[torch.Tensor]  # segment r's keys, sorted ascending (int32)
-    order: List[torch.Tensor]  # stable argsort: keys[r] == input_r[order[r]]
+    keys: List  # segment r's keys, sorted ascending (int32)
+    order: List  # stable argsort: keys[r] == input_r[order[r]]
     stats: TierStats  # escalation counters of the fused sort
     tier: Optional[str]  # capacity tier that served the batch
     n_per_proc: int  # the power-of-two bucket of the batch
@@ -188,7 +189,10 @@ class SegmentedResult:
 @dataclasses.dataclass
 class InFlightSegmentedSort:
     """A launched fused batch: :meth:`wait` escalates through the ladder if
-    the launched rung faulted, then unpacks per segment."""
+    the launched rung faulted, then unpacks per segment. ``host=True``
+    copies the batch's flat keys and positions to the host once and splits
+    them there (the service hands out numpy results, as the JAX package's
+    does, without pinning the batch's device buffers)."""
 
     packed: PackedSegments
     flight: InFlightSort
@@ -196,9 +200,9 @@ class InFlightSegmentedSort:
     def done(self) -> bool:
         return self.flight.done()
 
-    def wait(self) -> SegmentedResult:
+    def wait(self, host: bool = False) -> SegmentedResult:
         res, vbufs, stats = self.flight.wait()
-        return _unpack_result(self.packed, res, vbufs, stats)
+        return _unpack_result(self.packed, res, vbufs, stats, host=host)
 
 
 def segmented_sort_launch(
@@ -232,8 +236,8 @@ def segmented_sort_launch(
     if (cfg.p, cfg.n_per_proc) != (packed.p, packed.n_per_proc):
         raise ValueError("config does not match the packed layout")
     dev = resolve_device(device)
-    x = torch.from_numpy(packed.comp).to(dev)
-    pos = torch.from_numpy(packed.pos).to(dev)
+    x = to_device(packed.comp, dev)
+    pos = to_device(packed.pos, dev)
     flight = bsp_sort_safe_launch(
         x, cfg, values=(pos,), stats=stats if stats is not None else TierStats(),
         generator=generator, device=dev, executor=executor,
@@ -269,13 +273,16 @@ def segmented_sort_safe(
     ).wait()
 
 
-def _unpack_result(packed: PackedSegments, res, vbufs, stats) -> SegmentedResult:
-    """Slice the fused sorted sequence back into segments."""
+def _unpack_result(packed: PackedSegments, res, vbufs, stats, host: bool = False) -> SegmentedResult:
+    """Slice the fused sorted sequence back into segments (on the host,
+    after one copy of the flat keys and positions, when ``host``)."""
     n = packed.n_keys
     counts = res.count.tolist()
     pos = torch.cat([vbufs[0][k, :c] for k, c in enumerate(counts)])
     flat = gathered_output(res)
     if len(packed.sizes) == 1:
+        if host:
+            flat, pos = flat.cpu().numpy(), pos.cpu().numpy()
         # raw int32 keys: pads (int32 max) may equal real keys and mix with
         # them among the maxima, so keep the elements with a position
         keep = pos >= 0
@@ -284,6 +291,10 @@ def _unpack_result(packed: PackedSegments, res, vbufs, stats) -> SegmentedResult
     flat, pos = flat[:n], pos[:n]  # pad composites (segment R) hold the tail
     keys = ((flat & int(_KEY_MASK)) - int(_KEY_BIAS)).to(torch.int32)
     sizes = list(packed.sizes)
+    if host:
+        cuts = np.cumsum(sizes)[:-1]
+        return SegmentedResult(keys=np.split(keys.cpu().numpy(), cuts), order=np.split(pos.cpu().numpy(), cuts),
+                               stats=stats, tier=stats.last_tier, n_per_proc=packed.n_per_proc)
     return SegmentedResult(keys=list(torch.split(keys, sizes)), order=list(torch.split(pos, sizes)),
                            stats=stats, tier=stats.last_tier, n_per_proc=packed.n_per_proc)
 

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import primitives as prim
-from .types import SortConfig
+from .types import SortConfig, to_device
 
 Tagged = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (keys, procs, idxs)
 
@@ -50,7 +50,7 @@ def sample_positions(cfg: SortConfig, generator: torch.Generator, device) -> tor
     pos = torch.randint(0, cfg.n_per_proc, (cfg.p, cfg.s), generator=generator)
     if cfg.algorithm == "iran":
         pos = torch.sort(pos, dim=1).values
-    return pos.to(device=device, dtype=torch.int32)
+    return to_device(pos.to(torch.int32), device)
 
 
 def random_sample(x_sorted: torch.Tensor, positions: torch.Tensor) -> Tagged:

@@ -57,13 +57,28 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """``a`` (a tensor or an array) as a tensor on ``device``.
+
+    A host tensor bound for the card is pinned and copied asynchronously:
+    a blocking copy from pageable memory ends in a stream synchronize, so
+    it would wait for every kernel queued before it and serialize the
+    service's pipelined launches. The caching host allocator keeps the
+    pinned block alive until the copy has run, so the temporary may go at
+    once. Any other copy is the plain ``.to``; the bytes are the same.
+    """
+    t, device = torch.as_tensor(a), torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class SortConfig:
     """Static configuration of one BSP sort instance.
 
     The fields and the capacity arithmetic are those of the JAX package's
-    ``SortConfig`` (without its ``chaos`` handle, which waits for the chaos
-    layer), so a configuration carries across unchanged
+    ``SortConfig``, so a configuration carries across unchanged
     (``core/convert.py``):
 
     * ``omega`` — oversampling regulator ω_n (det default ⌈lg lg n⌉).
@@ -87,6 +102,10 @@ class SortConfig:
       the drivers read it at launch/wait boundaries. It is left out of
       ``__eq__``/``__hash__``, so a traced and an untraced config are equal
       and share every executor entry.
+    * ``chaos`` — a :class:`repro_torch.chaos.FaultPlan` or None, left out
+      of ``__eq__``/``__hash__`` for the same reason: a faulted and a clean
+      config share every executor entry, and every injection is a host
+      decision at a driver boundary (``InFlightSort.wait``).
     """
 
     p: int
@@ -108,6 +127,7 @@ class SortConfig:
     n_max_override: Optional[int] = None
     seed: int = 0
     obs: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
+    chaos: Optional[object] = dataclasses.field(default=None, compare=False, repr=False)
 
     # ------------------------------------------------------------------ math
     @property
@@ -246,8 +266,8 @@ class SortConfig:
         fields, none of which the prepare stage (Ph2, and det's Ph3
         splitters) reads, so two configs with equal ``prepare_key()`` share
         one prepared state. ``omega`` stays only for det on the sample
-        route (the only prepare that draws a sample); ``obs`` is dropped so
-        an executor key never holds a tracer. The JAX package's
+        route (the only prepare that draws a sample); ``obs`` and ``chaos``
+        are dropped so an executor key never holds a tracer or a fault plan. The JAX package's
         normalisation, field for field.
         """
         return dataclasses.replace(
@@ -263,6 +283,7 @@ class SortConfig:
             exchange="fused",
             omega=self.omega if (self.algorithm == "det" and self.route == "sample") else None,
             obs=None,
+            chaos=None,
         )
 
     def validate(self) -> None:

@@ -47,7 +47,7 @@ from .. import obs
 from ..core.api import InFlightSort, SortExecutor, TierStats, bsp_sort_safe_launch, gathered_output
 from ..core.merge import _rank_merge_two
 from ..core.segmented import SegmentedResult, _pow2_n_per_proc, contiguous_lane_sizes
-from ..core.types import SortConfig, resolve_device, round_up, sentinel_for
+from ..core.types import SortConfig, resolve_device, round_up, sentinel_for, to_device
 
 #: low bits of the fold composite holding the original position; the
 #: (biased) int32 key sits above. 31 + 32 bits keeps the composite inside
@@ -203,7 +203,7 @@ def sort_delta_comps_launch(
         off += c
     cfg = SortConfig(p=p, n_per_proc=n_p, algorithm="iran", pair_capacity="exact", obs=obs_handle)
     dev = resolve_device(device)
-    flight = bsp_sort_safe_launch(torch.from_numpy(rows).to(dev), cfg, stats=stats, executor=executor, device=dev)
+    flight = bsp_sort_safe_launch(to_device(rows, dev), cfg, stats=stats, executor=executor, device=dev)
     return flight, n_p
 
 
@@ -229,16 +229,18 @@ class InFlightDeltaSort:
     def done(self) -> bool:
         return self.flight is None or self.flight.done()
 
-    def wait(self) -> SegmentedResult:
+    def wait(self, host: bool = False) -> SegmentedResult:
+        """The fold's result; ``host=True`` copies the merged composites to
+        the host once and unlifts them there (numpy keys and order)."""
         if self.flight is not None:
             res, _, _ = self.flight.wait()
             d = gathered_output(res)[: self.n_delta]
         else:
             d = torch.zeros(0, dtype=torch.int64, device=self.comp_kept.device)
         merged, _ = merge_sorted_runs(self.comp_kept, d, backend=self.backend)
-        keys, order = drop_positions(merged)
+        keys, order = drop_positions(merged.cpu().numpy() if host else merged)
         if self.tracer is not None:
-            n = keys.numel()
+            n = int(keys.shape[0])
             self.tracer.add_span(
                 "fold",
                 self.t_launched,
@@ -277,7 +279,7 @@ def near_sorted_sort_launch(
     dev = resolve_device(device)
     stats = stats if stats is not None else TierStats()
     kept_idx, delta_idx = split_sorted_run(arr)
-    comp_kept = torch.from_numpy(lift_positions(arr[kept_idx], kept_idx)).to(dev)
+    comp_kept = to_device(lift_positions(arr[kept_idx], kept_idx), dev)
     comp_delta = lift_positions(arr[delta_idx], delta_idx)
     tracer = obs.resolve_tracer(obs_handle)
     flight, n_p = sort_delta_comps_launch(

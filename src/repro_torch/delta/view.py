@@ -25,8 +25,10 @@ Tombstones for absent keys count as misses.
 
 Every fold's merged run is checked for order; a Δ run out of order makes
 the view fall back to a resort from the untouched pre-fold state
-(``delta.fold_fallback_resorts``). The JAX package's view injects such
-faults through its chaos layer, which the port has not yet.
+(``delta.fold_fallback_resorts``). ``chaos_handle`` (a
+:class:`repro_torch.chaos.FaultPlan`) injects such a fault: a fold whose
+sequence number the plan picks has its sorted Δ keys reversed before the
+merge, as in the JAX package.
 
 Counters per view label in the registry: ``delta.folds``,
 ``delta.resorts``, ``delta.tombstones``, ``delta.tombstone_misses``;
@@ -70,6 +72,7 @@ class SortedView:
         executor: Optional[SortExecutor] = None,
         stats: Optional[TierStats] = None,
         obs_handle=None,
+        chaos_handle=None,
         label: Optional[str] = None,
         fold_max_share: float = 0.25,
         merge_backend: str = "xla",
@@ -90,6 +93,9 @@ class SortedView:
         self.last_n_per_proc = min_n_per_proc
         self._obs_handle = obs_handle
         self._tracer = obs.resolve_tracer(obs_handle)
+        # fold-corruption injection: the view only calls next_fold and
+        # corrupt_fold, duck-typed like the tracer
+        self._chaos_handle = chaos_handle
         reg = obs.metrics()
         self._folds = reg.counter("delta.folds", view=self.label)
         self._resorts = reg.counter("delta.resorts", view=self.label)
@@ -134,7 +140,8 @@ class SortedView:
         """Copy of the snapshot sharing executor/stats/label (same family)."""
         c = SortedView(
             p=self.p, min_n_per_proc=self.min_n_per_proc, executor=self.executor, stats=self.stats,
-            obs_handle=self._obs_handle, label=self.label, fold_max_share=self.fold_max_share,
+            obs_handle=self._obs_handle, chaos_handle=self._chaos_handle, label=self.label,
+            fold_max_share=self.fold_max_share,
             merge_backend=self.merge_backend, device=self.device,
         )
         c.keys = self.keys.clone()
@@ -187,6 +194,11 @@ class SortedView:
             if dn:
                 dk, dorder, res = self._device_sort(arr)
                 dvs = [prim.gather(v, 0, dorder) for v in pls]
+                ch = self._chaos_handle
+                if ch is not None and ch.corrupt_fold(ch.next_fold()):
+                    # injected corruption: the sorted Δ run reversed, as a bad
+                    # fold input would look; the check below must catch it
+                    dk = torch.flip(dk, [0])
                 merged, vout = merge_sorted_runs(self.keys, dk, self.payloads, dvs, backend=self.merge_backend)
                 if _out_of_order(merged):
                     # the merged run is not sorted: a fold input was out of

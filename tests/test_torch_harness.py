@@ -44,6 +44,44 @@ def x64(on: bool = True):
     return jax.experimental.enable_x64() if on else contextlib.nullcontext()
 
 
+def reference_draws(monkeypatch, scope_x64=None):
+    """Make the port's randomized sorts draw the reference's sample: rung r
+    takes the positions ``random_sample`` draws under ``fold_in(key(seed), r)``
+    (the draw depends on the shape, the key and the 64-bit scope only).
+
+    ``scope_x64=None`` takes the scope from the keys being sorted, as the
+    JAX package enters it: int64 keys (the segmented sort's composites, the
+    delta route's lifted keys) draw under it, int32 keys outside it. The
+    keys are the ``x`` of the frame that asks for the positions (the
+    launch driver's ``run_tier``).
+    """
+    import jax
+    import jax.numpy as jnp
+
+    from repro_torch.core import api as port_api
+
+    ref = reference()
+    from repro.core import splitters
+    from repro.core.types import AXIS
+
+    def positions(cfg, rung, generator, device):
+        if cfg.algorithm not in ("iran", "ran") or cfg.route == "radix":
+            return None
+        on = scope_x64
+        if on is None:
+            x = sys._getframe(1).f_locals.get("x")
+            on = x is not None and x.dtype == torch.int64
+        fields = {k: v for k, v in config_fields(cfg).items() if k not in ("obs", "chaos")}
+        rcfg = ref.SortConfig(**fields)
+        with x64(on):
+            rng = jax.random.fold_in(jax.random.key(cfg.seed), rung)
+            xs = jnp.zeros((cfg.p, cfg.n_per_proc), jnp.int32)
+            pos = jax.vmap(lambda r: splitters.random_sample(r, rcfg, AXIS, rng)[2], axis_name=AXIS)(xs)
+            return torch.from_numpy(np.array(pos)).to(device)
+
+    monkeypatch.setattr(port_api, "_positions", positions)
+
+
 def config_fields(cfg) -> dict:
     """A reference ``SortConfig``'s fields as a plain dict."""
     import dataclasses
@@ -156,3 +194,88 @@ def test_default_device_without_card_raises():
 def test_reference_loader_imports_the_jax_package():
     ref = reference()
     assert hasattr(ref, "bsp_sort_safe") and hasattr(ref, "SortConfig")
+
+
+# ------------------------------------------------ the sort service, both packages
+def ref_service():
+    """The JAX package's ``repro.service``, ``repro.chaos``, ``repro.delta``,
+    ``repro.obs`` and ``repro.train.elastic`` (imported on first call)."""
+    import types
+
+    reference()
+    import repro.chaos
+    import repro.delta
+    import repro.obs
+    import repro.service
+    import repro.train.elastic
+
+    return types.SimpleNamespace(service=repro.service, chaos=repro.chaos, delta=repro.delta, obs=repro.obs,
+                                 elastic=repro.train.elastic)
+
+
+def service_pair(rex, ex, *, chaos=None, **cfg_kw):
+    """One ``ServiceConfig`` in both packages: the reference's, and the
+    port's converted from it (``service_config_from_reference``), with the
+    fault plan ``chaos`` (keyword arguments of ``FaultPlan``) in each.
+    Returns ``(reference service, port service on the CPU)``."""
+    from repro_torch.core import service_config_from_reference
+    from repro_torch.service import SortService
+
+    r = ref_service()
+    plan = r.chaos.FaultPlan(**chaos) if chaos is not None else None
+    rcfg = r.service.ServiceConfig(chaos=plan, **cfg_kw)
+    return (r.service.SortService(rcfg, executor=rex),
+            SortService(service_config_from_reference(rcfg), executor=ex, device="cpu"))
+
+
+def outcome(fut) -> tuple:
+    """A future's outcome as plain data: a failure's class, message and
+    rids, or a result's keys and order (dtype and bytes), tier, bucket
+    and failsink mark."""
+    exc = fut.exception()
+    if exc is not None:
+        return ("error", fut.rid, type(exc).__name__, str(exc), tuple(getattr(exc, "rids", ())), fut.failsink)
+    res = fut.result()
+    keys, order = np.asarray(res.keys), np.asarray(res.order)
+    return ("ok", res.rid, keys.dtype.str, keys.tobytes(), order.dtype.str, order.tobytes(), res.tier,
+            res.n_per_proc, res.failsink)
+
+
+def assert_same_outcomes(rfuts, futs) -> None:
+    assert len(rfuts) == len(futs)
+    for rf, f in zip(rfuts, futs):
+        assert outcome(f) == outcome(rf), f.rid
+
+
+#: telemetry keys read off host clocks, which the two runs cannot share
+CLOCK_KEYS = ("lat_mean_ms", "lat_p50_ms", "lat_p99_ms")
+
+
+def counters(svc) -> dict:
+    """A service's telemetry without the clock-read entries: every counter
+    (dispatcher, planner, tiers, buckets, triggers). ``straggler_flights``
+    compares flight walls with their running mean, so it goes too."""
+    tele = {k: v for k, v in svc.telemetry().items() if k not in CLOCK_KEYS}
+    tele["dispatch"] = {k: v for k, v in tele["dispatch"].items() if k != "straggler_flights"}
+    return tele
+
+
+def assert_same_counters(rsvc, svc) -> None:
+    assert counters(svc) == counters(rsvc)
+
+
+def patch_launch(monkeypatch, wrap) -> None:
+    """Wrap ``segmented_sort_launch`` in both dispatch namespaces:
+    ``wrap(orig)`` returns the replacement."""
+    import repro_torch.service.dispatch as port_dispatch
+
+    ref_service()
+    import repro.service.dispatch as ref_dispatch
+
+    for mod in (ref_dispatch, port_dispatch):
+        monkeypatch.setattr(mod, "segmented_sort_launch", wrap(mod.segmented_sort_launch))
+
+
+def request_arrays(sizes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-(2**31), 2**31, s).astype(np.int32) for s in sizes]

@@ -142,7 +142,7 @@ def test_obs_field_is_invisible_to_eq_hash_and_prepare_key():
 def test_prepare_key_matches_reference(kw):
     ref = reference()
     rcfg = ref.SortConfig(p=P, n_per_proc=N_P, **kw)
-    want = {k: v for k, v in config_fields(rcfg.prepare_key()).items() if k != "chaos"}
+    want = config_fields(rcfg.prepare_key())  # every field, the chaos handle included
     got = config_fields(SortConfig(p=P, n_per_proc=N_P, **kw).prepare_key())
     assert got == want
 

@@ -24,9 +24,9 @@ import pytest
 import torch
 
 from repro_torch.core import SortExecutor, TierStats, bsp_sort_safe, datagen, gathered_output
-from repro_torch.core import api as port_api
 from repro_torch.core.convert import planner_from_reference
 from repro_torch.core.segmented import pack_segments, segmented_sort_safe
+from repro_torch.service.dispatch import plan_overrides
 from repro_torch.planner import (
     CapacityPlanner,
     bucket_key,
@@ -39,21 +39,10 @@ from repro_torch.planner import (
     segment_aware_pair_cap,
     solve_omega,
 )
-from test_torch_harness import adversarial, config_fields, reference, x64
+from test_torch_harness import adversarial, reference, reference_draws, x64
 
 P = 8
 MIXES = ["U", "G", "B", "DD", "zipf"]
-
-
-def sort_overrides(d):
-    """The segmented sort's overrides for a plan, as the JAX package's
-    service dispatcher builds them (``service/dispatch.py:605-617``)."""
-    ov = {"pair_capacity": d.pair_capacity}
-    if d.route == "radix":
-        ov["route"] = "radix"
-    elif d.pair_capacity == "planned":
-        ov.update(pair_cap_override=d.pair_cap_override, omega=d.omega)
-    return ov
 
 
 def ref_planner():
@@ -184,31 +173,6 @@ def test_corrupt_history_warns_and_starts_fresh(tmp_path):
             assert CapacityPlanner(path=str(path)).history == {}
 
 
-def reference_draws(monkeypatch, scope_x64: bool):
-    """Make the port's randomized sorts draw the reference's sample: rung r
-    takes the positions ``random_sample`` draws under ``fold_in(key(seed), r)``
-    (the draw depends on the shape and the key only)."""
-    import jax
-    import jax.numpy as jnp
-
-    ref = reference()
-    from repro.core import splitters
-    from repro.core.types import AXIS
-
-    def positions(cfg, rung, generator, device):
-        if cfg.algorithm not in ("iran", "ran") or cfg.route == "radix":
-            return None
-        fields = {k: v for k, v in config_fields(cfg).items() if k != "obs"}
-        rcfg = ref.SortConfig(**fields)
-        with x64(scope_x64):
-            rng = jax.random.fold_in(jax.random.key(cfg.seed), rung)
-            xs = jnp.zeros((cfg.p, cfg.n_per_proc), jnp.int32)
-            pos = jax.vmap(lambda r: splitters.random_sample(r, rcfg, AXIS, rng)[2], axis_name=AXIS)(xs)
-            return torch.from_numpy(np.array(pos)).to(device)
-
-    monkeypatch.setattr(port_api, "_positions", positions)
-
-
 PLANNED_MIXES = [(m, n) for m in MIXES for n in (16, 64)] + [("U", 1), ("skewed", 8)]
 
 
@@ -228,7 +192,7 @@ def test_planned_segmented_sort_matches_reference(mix, n_req, monkeypatch):
     for _ in range(2):  # twice through one planner, as the card run does
         d, rd = pl.plan(arrays, P), rpl.plan(arrays, P)
         assert decision_row(d) == decision_row(rd)
-        ov = sort_overrides(d)
+        ov = plan_overrides(d)
         with x64(len(arrays) > 1):
             rpk = rseg.pack_segments(arrays, P, layout=rd.layout)
             want = rseg.segmented_sort_safe(rpk, merge="tree", merge_backend="pallas", **ov)
@@ -291,7 +255,7 @@ def test_executor_entries_bounded_and_replayed_under_planned_traffic():
             arrays = zipf_mix(["U", "DD", "zipf"][seed % 3], [4, 16, 16][seed % 3], 1024 + 128 * (seed % 5), seed)
             d = pl.plan(arrays, P)
             res = segmented_sort_safe(pack_segments(arrays, P, layout=d.layout), executor=ex, device="cpu",
-                                      generator=torch.Generator().manual_seed(seed), **sort_overrides(d))
+                                      generator=torch.Generator().manual_seed(seed), **plan_overrides(d))
             pl.record(d, res.stats.retries > 0)
 
     soak()
