@@ -125,16 +125,39 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      K1–K4 (their batches carry the position payload and
                      ``ServiceConfig`` has no ``merge_backend``, as in the
                      JAX package); the count is printed.
+18. ``lm_path``    — granite-moe-1b-a400m at full width (24 layers, d_model
+                     1024, 32 experts top-8, vocab 49155; weights from a
+                     seeded generator on the card): on its float32 copy the
+                     teacher-forced check (prefill 255 tokens and decode
+                     the 256th against the prefill of 256, held where the
+                     capacity rule dropped none of the last token's
+                     records, and always at 64 tokens, where nothing can
+                     drop), one layer's grouped GEMM against a per-token
+                     loop at n = 512 records, and a 1024-token prompt's
+                     overflow flags and dropped records, recounted from the
+                     router; ``ServeEngine.serve`` of 32 requests (16–512
+                     tokens) and 4 arrivals on 8 slots in bfloat16, greedy,
+                     32 new tokens each: every request answered within its
+                     budget, refills and prefetches, the admission order;
+                     wall (median of 3 warm runs), tokens/s, prefill ms,
+                     the decode step at 8 lanes, device busy and idle share
+                     over a profiled window, peak memory; the float32
+                     streams of 8 requests equal ``generate()`` of each
+                     alone; tinyllama-1.1b's float32 teacher-forced check;
+                     the reduced granite and tinyllama on the card against
+                     the CPU. It launches no K1–K4 (the MoE dispatch sorts
+                     with ``torch.sort``, as the reference with
+                     ``jnp.argsort``); the count is printed.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16 and 17, each counted from zero just
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17 and 18, each counted from zero just
 before the phase's checked runs and read just after; the int64 routes of K2
 and K3 and K3's float route are listed and counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17) runs the build and those phases only, and
+phases 11, 13, 14, 16, 17, 18) runs the build and those phases only, and
 prints no result line.
 """
 from __future__ import annotations
@@ -1970,6 +1993,338 @@ def phase_chaos_path(torch, core, build):
     return launches
 
 
+# ------------------------------------------------------------- the LM path
+LM_ARCH = "granite-moe-1b-a400m"
+DENSE_ARCH = "tinyllama-1.1b"
+#: the teacher-forced checks on the card, relative to the logits' largest
+#: magnitude: float32 without TF32 (prefill and decode GEMMs sum in other
+#: orders over 24 layers); bfloat16 is printed, not held
+TF_TOL = 1e-3
+#: a MoE layer against the plain per-token loop, float32, same scale
+MOE_TOL = 1e-5
+#: the reduced models' prefill logits, card against CPU, float32 (absolute)
+CPU_TOL = 1e-4
+
+
+class MoETap:
+    """Wraps ``transformer._mlp_block`` while in ``with``: for every MoE call
+    of a prefill it recounts, from the router alone, the records the
+    capacity rule drops, and how many of them belong to the last token,
+    beside the layer's own overflow flag."""
+
+    def __init__(self, torch, transformer, moe):
+        self.torch, self.transformer, self.moe = torch, transformer, moe
+        self.rows = []
+
+    def __enter__(self):
+        torch, moe, orig = self.torch, self.moe, self.transformer._mlp_block
+        self.orig = orig
+
+        def tapped(cfg, lp, h, mesh_info=None, lanes=1):
+            y, aux = orig(cfg, lp, h, mesh_info, lanes)
+            if cfg.moe_experts and lanes == 1:
+                x2d = h.reshape(-1, h.shape[-1])
+                E, k = cfg.moe_experts, cfg.moe_top_k
+                _, experts, _ = moe._router(x2d, lp["router"], k)
+                n = x2d.shape[0] * k
+                cap = n if n <= 512 else int(-(-n * 1.25 // E))
+                loads = torch.bincount(experts.reshape(-1).long(), minlength=E)
+                before_last = torch.bincount(experts[:-1].reshape(-1).long(), minlength=E)
+                self.rows.append(dict(overflow=bool(aux["overflow"]),
+                                      dropped=int(torch.clamp(loads - cap, min=0).sum()),
+                                      last_dropped=int((before_last[experts[-1].long()] >= cap).sum()), cap=cap))
+            return y, aux
+
+        self.transformer._mlp_block = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.transformer._mlp_block = self.orig
+
+
+def dispatch_count():
+    """A dispatch mode counting the aten ops a block of code dispatches
+    (views included): the host's work of an eager step."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    return Count()
+
+
+def teacher_forced(torch, model, tokens, tap=None):
+    """Prefill all but the last token and decode it, against the prefill of
+    all: (max |difference| / max |logits|, max |logits|)."""
+    n = tokens.shape[1]
+    cache, _ = model.prefill({"tokens": tokens[:, :-1]}, cache_len=n)
+    dec, _ = model.decode_step(cache, tokens[:, -1])
+    if tap is not None:
+        with tap:
+            _, full = model.prefill({"tokens": tokens}, cache_len=n)
+    else:
+        _, full = model.prefill({"tokens": tokens}, cache_len=n)
+    scale = full.float().abs().max().item()
+    return (dec.float() - full.float()).abs().max().item() / scale, scale
+
+
+def lm_requests(np, vocab, n=32, seed=19):
+    """``n`` prompts: lengths from ``default_rng(seed).integers(16, 513, n)``,
+    token ids from the same generator."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(16, 513, n)
+    return [rng.integers(0, vocab, int(m)).astype(np.int32) for m in lengths], rng
+
+
+def check_streams(streams, budgets, eos, what):
+    for i, (s, b) in enumerate(zip(streams, budgets)):
+        if not 1 <= len(s) <= b:
+            fail("lm_path", f"{what}: request {i} answered {len(s)} tokens against a budget of {b}")
+        if eos in s.tolist()[:-1]:
+            fail("lm_path", f"{what}: request {i} runs past its EOS")
+
+
+def phase_lm_path(torch, core, build):
+    """granite-moe-1b-a400m at full width on the card: the teacher-forced
+    and MoE checks on its float32 copy, ``ServeEngine.serve`` of 32 requests
+    plus 4 arrivals in bfloat16 (timed, profiled), the float32 streams
+    against ``generate()``; tinyllama-1.1b's teacher-forced check; the
+    reduced granite and tinyllama on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model, moe, transformer
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    build.reset_counts()
+    t_phase = time.perf_counter()
+    out = {"seconds": {}}
+
+    def lap(part):
+        out["seconds"][part] = time.perf_counter() - t_phase - sum(out["seconds"].values())
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=19)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    out["model"] = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+                        n_kv_heads=cfg.n_kv_heads, experts=cfg.moe_experts, top_k=cfg.moe_top_k, d_ff=cfg.d_ff,
+                        vocab=cfg.vocab, params=n_params, cfg_param_count=cfg.param_count(),
+                        active_param_count=cfg.active_param_count(), init_s=time.perf_counter() - t0)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = Model(cfg32, params={k: v.float() for k, v in model.state_dict().items()})
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    # teacher-forced: prefill 255 and decode the 256th, against prefill 256;
+    # and at 64 tokens (n = 512 records a layer: full capacity, nothing drops)
+    toks = torch.randint(0, cfg.vocab, (1, 256), generator=gen, device="cuda", dtype=torch.int32)
+    tap = MoETap(torch, transformer, moe)
+    err32, scale32 = teacher_forced(torch, m32, toks, tap)
+    err16, scale16 = teacher_forced(torch, model, toks)
+    err64, _ = teacher_forced(torch, m32, toks[:, :64])
+    last_dropped = sum(r["last_dropped"] for r in tap.rows)
+    for r in tap.rows:
+        if r["overflow"] != (r["dropped"] > 0):
+            fail("lm_path", f"teacher-forced prefill: overflow flag {r['overflow']} with {r['dropped']} drops")
+    if err64 > TF_TOL or (last_dropped == 0 and err32 > TF_TOL):
+        fail("lm_path", f"teacher-forced float32: {err32} (256 tokens), {err64} (64 tokens) > {TF_TOL}")
+    out["teacher_forced"] = dict(tokens=256, tol=TF_TOL, float32_rel_err=err32, bfloat16_rel_err=err16,
+                                 logits_max=scale32, bf16_logits_max=scale16, tokens64_float32_rel_err=err64,
+                                 layers_overflowing=sum(r["overflow"] for r in tap.rows),
+                                 records_dropped=sum(r["dropped"] for r in tap.rows), cap=tap.rows[0]["cap"],
+                                 last_token_records_dropped=last_dropped,
+                                 held_at_256=last_dropped == 0)
+    lap("teacher_forced")
+
+    # one layer's grouped GEMM at n = 64 * 8 = 512 against the per-token loop
+    lp = m32.layers[0]
+    x = torch.randn((64, cfg.d_model), generator=gen, device="cuda")
+    params = {k: lp[k] for k in ("router", "w_gate", "w_up", "w_down")}
+    y, aux = moe._grouped_gemm_moe(params, x, cfg32, 1.25)
+    probs, experts, _ = moe._router(x, lp["router"], cfg.moe_top_k)
+    want = torch.zeros_like(x)
+    for t, row in enumerate(experts.tolist()):
+        for j, e in enumerate(row):
+            want[t] += probs[t, j] * moe._expert_ffn(x[t:t + 1], lp["w_gate"][e], lp["w_up"][e], lp["w_down"][e])[0]
+    moe_err = ((y - want).abs().max() / want.abs().max()).item()
+    if moe_err > MOE_TOL or bool(aux["overflow"]):
+        fail("lm_path", f"grouped GEMM against the per-token loop: {moe_err} > {MOE_TOL}, overflow {aux['overflow']}")
+    tap = MoETap(torch, transformer, moe)
+    with tap:
+        m32.prefill({"tokens": torch.randint(0, cfg.vocab, (1, 1024), generator=gen, device="cuda")})
+    for r in tap.rows:
+        if r["overflow"] != (r["dropped"] > 0):
+            fail("lm_path", f"1024-token prefill: overflow flag {r['overflow']} with {r['dropped']} drops")
+    out["moe"] = dict(n512_rel_err=moe_err, tol=MOE_TOL, prompt1024_cap=tap.rows[0]["cap"],
+                      prompt1024_overflow=[r["overflow"] for r in tap.rows],
+                      prompt1024_dropped=[r["dropped"] for r in tap.rows],
+                      prompt1024_dropped_total=sum(r["dropped"] for r in tap.rows),
+                      prompt1024_records=1024 * cfg.moe_top_k * cfg.n_layers)
+    lap("moe")
+
+    # serving, bfloat16: 32 requests on 8 slots, 4 arrivals at steps 8 and 16
+    prompts, rng = lm_requests(np, cfg.vocab)
+    late = [rng.integers(0, cfg.vocab, int(m)).astype(np.int32) for m in rng.integers(16, 513, 4)]
+    scfg = ServeConfig(max_new_tokens=32, temperature=0.0)
+    lengths = np.asarray([len(p) for p in prompts], np.int32)
+
+    def serve(eng, reqs=prompts, arrive=True, hook=None):
+        sched = {8: late[:2], 16: late[2:]} if arrive else {}
+        before = (eng.refills, eng.admission_prefetches)
+
+        def arrivals(step):
+            if hook is not None:
+                hook(step)
+            return sched.get(step)
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        streams = eng.serve(reqs, slots=8, arrivals=arrivals)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, streams, (eng.refills - before[0], eng.admission_prefetches - before[1])
+
+    # the profiler over a steady window of one more warm run: decode steps
+    # 8 to 40 (two arrivals folding, refills and prefetched prefills in it);
+    # the whole run's ~300k kernels would take minutes to tabulate
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+
+    def profile_window(step):
+        if step == 8:
+            torch.cuda.synchronize()
+            prof.start()
+            window["t0"] = time.perf_counter()
+        elif step == 40:
+            torch.cuda.synchronize()
+            window["wall"] = time.perf_counter() - window["t0"]
+            prof.stop()
+
+    eng = ServeEngine(model, scfg)
+    first_s, streams, (refills, prefetches) = serve(eng)
+    budgets = [scfg.max_new_tokens] * len(streams)
+    if len(streams) != len(prompts) + len(late):
+        fail("lm_path", f"{len(streams)} streams for {len(prompts) + len(late)} requests")
+    check_streams(streams, budgets, scfg.eos_id, "serve")
+    if not (refills >= 1 and prefetches >= refills):
+        fail("lm_path", f"refills {refills}, admission prefetches {prefetches}")
+    order = eng.admission_order(lengths)
+    if not np.array_equal(order, np.argsort(lengths, kind="stable")):
+        fail("lm_path", "the admission order is not the stable argsort of the prompt lengths")
+    walls = []
+    for _ in range(3):
+        wall, again, _ = serve(eng)
+        walls.append(wall)
+        if [a.tolist() for a in again] != [s.tolist() for s in streams]:
+            fail("lm_path", "a warm serve() gave other greedy streams")
+    serve(eng, hook=profile_window)
+    split = device_split(torch, prof)
+    busy = sum(ms for ms, _ in split.values())
+    lap("serve_timed_and_profiled")
+    wall = statistics.median(walls)
+    generated = sum(len(s) for s in streams)
+    prefill_ms = []
+    for p in prompts + late:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.prefill({"tokens": torch.from_numpy(p)[None]}, cache_len=1024)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+    # the pure decode rate at 8 lanes of a 544-token cache
+    cache, _ = model.prefill({"tokens": torch.from_numpy(prompts[0][:512])[None].repeat(8, 1)}, cache_len=1024)
+    cache["pos"] = cache["pos"].expand(8).clone()
+    tok = torch.zeros(8, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(32):
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / 32
+    ops = dispatch_count()
+    with ops:
+        model.decode_step(cache, tok)
+    rows = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)
+    bf16_match = sum(
+        s.tolist() == eng.generate(p[None]).cpu().numpy()[0][: len(s)].tolist()
+        for s, p in zip(streams[:8], prompts[:8]))
+    out["serve"] = dict(requests=len(prompts), arrivals=len(late), slots=8, max_new_tokens=scfg.max_new_tokens,
+                        eos_id=scfg.eos_id, prompt_tokens=int(lengths.sum() + sum(len(p) for p in late)),
+                        tokens_generated=generated, refills=refills, admission_prefetches=prefetches,
+                        first_s=first_s, wall_s=wall, walls_s=walls,
+                        tokens_per_s=generated / wall, mean_prefill_ms=statistics.mean(prefill_ms),
+                        max_prefill_ms=max(prefill_ms), decode_step_ms_8_lanes=step_ms,
+                        decode_step_dispatched_ops=ops.n, host_us_per_op=step_ms * 1e3 / ops.n,
+                        decode_tokens_per_s=8 / (step_ms / 1e3), profiled_steps="8-40",
+                        profiled_wall_s=window["wall"], device_busy_s=busy / 1e3,
+                        idle_share=max(0.0, 1 - busy / 1e3 / window["wall"]),
+                        top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:8]],
+                        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                        bf16_streams_equal_generate=f"{bf16_match} of 8")
+    del cache, logits
+    lap("serve_prefill_decode_generate")
+
+    # float32: the same mix's first 8 requests, each stream against generate()
+    eng32 = ServeEngine(m32, scfg)
+    _, streams32, _ = serve(eng32, prompts[:8], arrive=False)
+    check_streams(streams32, budgets, scfg.eos_id, "float32 serve")
+    for i, (s, p) in enumerate(zip(streams32, prompts[:8])):
+        row = eng32.generate(p[None]).cpu().numpy()[0]
+        if s.tolist() != row[: len(s)].tolist():
+            fail("lm_path", f"float32 request {i}: serve() {s.tolist()} != generate() {row.tolist()}")
+    out["float32_streams_equal_generate"] = 8
+    lap("float32_equality")
+    del model, m32, eng, eng32
+    torch.cuda.empty_cache()
+
+    # the dense path at full width: tinyllama-1.1b's float32 teacher-forced check
+    dcfg = dataclasses.replace(get_arch(DENSE_ARCH), dtype="float32")
+    dense = Model(dcfg, seed=19)
+    dtoks = torch.randint(0, dcfg.vocab, (1, 256), generator=gen, device="cuda", dtype=torch.int32)
+    derr, dscale = teacher_forced(torch, dense, dtoks)
+    if derr > TF_TOL:
+        fail("lm_path", f"{DENSE_ARCH} teacher-forced float32: {derr} > {TF_TOL}")
+    out["dense"] = dict(arch=dcfg.name, params=sum(p.numel() for p in dense.parameters()),
+                        cfg_param_count=dcfg.param_count(), float32_rel_err=derr, logits_max=dscale, tol=TF_TOL)
+    del dense
+    torch.cuda.empty_cache()
+    lap("dense")
+
+    # the reduced models, float32: the card against the CPU
+    card_cpu = []
+    for arch in (LM_ARCH, DENSE_ARCH):
+        rcfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
+        cpu = Model(rcfg, device="cpu", seed=7)
+        card = Model(rcfg, device="cuda", params=cpu.state_dict())
+        reqs, _ = lm_requests(np, rcfg.vocab, n=6, seed=23)
+        reqs = [r[:48] for r in reqs]
+        _, lg_cpu = cpu.prefill({"tokens": reqs[0][None]})
+        _, lg_card = card.prefill({"tokens": reqs[0][None]})
+        err = (lg_card.cpu() - lg_cpu).abs().max().item()
+        kw = ServeConfig(max_new_tokens=16, temperature=0.0, eos_id=rcfg.vocab)  # no EOS: every budget runs out
+        s_card = [s.tolist() for s in ServeEngine(card, kw).serve(reqs, slots=3)]
+        s_cpu = [s.tolist() for s in ServeEngine(cpu, kw).serve(reqs, slots=3)]
+        if err > CPU_TOL or s_card != s_cpu:
+            fail("lm_path", f"reduced {arch}: card against CPU logits {err} (> {CPU_TOL}?), streams equal {s_card == s_cpu}")
+        card_cpu.append(dict(arch=arch, prefill_abs_err=err, tol=CPU_TOL, streams_equal=True, requests=len(reqs)))
+    out["card_vs_cpu"] = card_cpu
+    lap("card_vs_cpu")
+    torch.cuda.empty_cache()
+    launches = build.counts()
+    emit({"phase": "lm_path", "ok": True, **out, "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def adversarial(p, n_p):
     import numpy as np
 
@@ -2052,7 +2407,7 @@ def main() -> int:
         # it prints no kernels line and no result line
         paths = {"service_path": phase_service_path, "chaos_path": phase_chaos_path,
                  "segmented_path": phase_segmented_path, "planner_path": phase_planner_path,
-                 "delta_path": phase_delta_path}
+                 "delta_path": phase_delta_path, "lm_path": phase_lm_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -2079,6 +2434,14 @@ def main() -> int:
             launches[name] += counted.get(name, 0)
     emit({"phase": "service_launches", "ok": True, "launches": service_launches,
           "none_as_expected": not any(service_launches.values())})
+    # nor does the LM path: the MoE dispatch sorts with torch.sort (the
+    # reference's jnp.argsort), admission goes through the service and the
+    # admission view keeps merge_backend="xla"
+    lm_launches = phase_lm_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += lm_launches.get(name, 0)
+    emit({"phase": "lm_launches", "ok": True, "launches": lm_launches,
+          "none_as_expected": not any(lm_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 

@@ -23,7 +23,8 @@ Public API:
     planner_from_reference,
     view_from_reference,
     fault_plan_from_reference,
-    service_config_from_reference        — carry state from the JAX package
+    service_config_from_reference,
+    params_from_reference                — carry state from the JAX package
     datagen                              — §6.3 benchmark input distributions
 """
 from .api import (
@@ -41,6 +42,7 @@ from .bsp import BSPMachine, CRAY_T3D, Prediction, predict, theoretical_max_imba
 from .convert import (
     config_from_reference,
     fault_plan_from_reference,
+    params_from_reference,
     planner_from_reference,
     prepared_from_reference,
     service_config_from_reference,
@@ -81,6 +83,7 @@ __all__ = [
     "fault_plan_from_reference",
     "gathered_output",
     "pack_segments",
+    "params_from_reference",
     "phase_fns",
     "planner_from_reference",
     "predict",

@@ -8,12 +8,13 @@ A capacity planner's JSON history (the reference's
 ``CapacityPlanner.save``) loads into the port's planner, a sorted
 view's snapshot (keys and payloads as numpy) installs into the port's
 ``SortedView``, and a ``FaultPlan`` or a ``ServiceConfig`` carries every
-field across, so both packages run one seeded fault schedule.
+field across, so both packages run one seeded fault schedule. An LM's
+parameter pytree (numpy leaves) becomes the port's parameters by name.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -110,3 +111,29 @@ def view_from_reference(keys, payloads: Sequence = (), **view_kw):
     view = SortedView(**view_kw)
     view.install(np.asarray(keys), [np.asarray(v) for v in payloads])
     return view
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor; ``ml_dtypes.bfloat16`` (which
+    ``torch.from_numpy`` refuses) goes through its uint16 bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def params_from_reference(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's LM parameter pytree (leaves as numpy arrays) as the
+    port's parameters by state-dict name: top-level leaves keep their name,
+    and each stacked ``(L, ...)`` leaf of ``tree["layers"]`` splits into
+    ``layers.<i>.<leaf>``. Bytes and dtypes are kept."""
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for name, leaf in tree.items():
+        if name == "layers":
+            for sub, stacked in leaf.items():
+                t = _host_tensor(stacked)
+                out.update({f"layers.{i}.{sub}": t[i].to(dev) for i in range(t.shape[0])})
+        else:
+            out[name] = _host_tensor(leaf).to(dev)
+    return out

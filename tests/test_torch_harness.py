@@ -279,3 +279,81 @@ def patch_launch(monkeypatch, wrap) -> None:
 def request_arrays(sizes, seed=0):
     rng = np.random.default_rng(seed)
     return [rng.integers(-(2**31), 2**31, s).astype(np.int32) for s in sizes]
+
+
+# ------------------------------------------------------------ the LM stack, both packages
+def ref_lm():
+    """The JAX package's ``repro.configs``, ``repro.models`` (with its
+    ``layers``, ``attention``, ``moe`` and ``transformer`` modules),
+    ``repro.serve`` (and ``repro.serve.engine``) and ``repro.data``
+    (imported on first call).
+
+    The modules come from ``sys.modules``, not as attributes of their
+    packages: where a JAX test module failed at collection on the
+    ``enable_x64`` import, its package was dropped while the submodules it
+    had imported stayed, and the package imported again lacks them as
+    attributes."""
+    import importlib
+    import types
+
+    reference()
+    names = dict(configs="repro.configs", models="repro.models", layers="repro.models.layers",
+                 attention="repro.models.attention", moe="repro.models.moe",
+                 transformer="repro.models.transformer", serve="repro.serve", engine="repro.serve.engine",
+                 data="repro.data")
+    return types.SimpleNamespace(**{k: importlib.import_module(m) for k, m in names.items()})
+
+
+def lm_pair(arch: str, dtype: str = "bfloat16", seed: int = 0):
+    """The reduced ``arch`` in ``dtype`` in both packages with the same
+    weights: ``(reference Model, its params, port Model on the CPU)``, the
+    reference's ``init(key(seed))`` carried across by
+    ``params_from_reference``."""
+    import dataclasses
+
+    import jax
+
+    from repro_torch.core import params_from_reference
+    from repro_torch.models import Model
+
+    r = ref_lm()
+    cfg = dataclasses.replace(r.configs.get_arch(arch).reduced(), dtype=dtype)
+    rmodel = r.models.Model(cfg)
+    rparams = rmodel.init(jax.random.key(seed))
+    tree = jax.tree.map(np.asarray, rparams)
+    return rmodel, rparams, Model(port_config(cfg), device="cpu", params=params_from_reference(tree, device="cpu"))
+
+
+def port_config(rcfg):
+    """The port's ``ArchConfig`` with every field of the reference's."""
+    import dataclasses
+
+    from repro_torch.configs.base import ArchConfig
+
+    return ArchConfig(**{f.name: getattr(rcfg, f.name) for f in dataclasses.fields(rcfg)})
+
+
+def to_numpy(a) -> np.ndarray:
+    """A port tensor or a reference array as float32 numpy (bf16 widened)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy() if a.is_floating_point() else a.detach().cpu().numpy()
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.kind == "V" or a.dtype.name == "bfloat16" else a
+
+
+def to_torch(a) -> torch.Tensor:
+    """A numpy array (``ml_dtypes.bfloat16`` included) as a CPU tensor."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def inputs(rng, shape, dtype: str, scale: float = 1.0):
+    """One seeded normal array in ``dtype`` as ``(jax array, port tensor)``."""
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    a = a.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else a
+    return jnp.asarray(a), to_torch(a)

@@ -14,6 +14,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from test_torch_harness import SRC
 
 _EACH_ALONE = r"""
@@ -47,4 +49,44 @@ def test_every_module_imports_alone():
     proc = subprocess.run([sys.executable, "-c", _EACH_ALONE], env=env, capture_output=True, text=True,
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 38, proc.stdout
+    assert int(proc.stdout.split()[0]) >= 72, proc.stdout  # configs/models/serve/data included
+    for name in ("repro_torch.configs.granite_moe_1b_a400m", "repro_torch.models.moe", "repro_torch.serve.engine",
+                 "repro_torch.data.pipeline"):
+        assert name in _module_names(), name
+
+
+def _module_names():
+    import pkgutil
+
+    import repro_torch
+
+    return [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+
+
+@pytest.mark.cuda
+def test_lm_serves_on_the_card_as_on_the_cpu():
+    """The reduced granite-moe in float32, one set of weights on both
+    devices: the card's greedy ``serve()`` streams equal the CPU's, and its
+    prefill logits are within 1e-4 of the CPU's."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m").reduced(), dtype="float32")
+    cpu = Model(cfg, device="cpu", seed=1)
+    card = Model(cfg, device="cuda", params=cpu.state_dict())
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).astype(np.int32) for n in rng.integers(8, 40, 6)]
+    _, lg_cpu = cpu.prefill({"tokens": prompts[0][None]})
+    _, lg_card = card.prefill({"tokens": prompts[0][None]})
+    assert (lg_card.cpu() - lg_cpu).abs().max().item() <= 1e-4 * lg_cpu.abs().max().item()
+    kw = dict(max_new_tokens=8, temperature=0.0, eos_id=cfg.vocab)  # no EOS: every budget runs out
+    streams = [[s.tolist() for s in ServeEngine(m, ServeConfig(**kw)).serve(prompts, slots=3)] for m in (card, cpu)]
+    assert streams[0] == streams[1]
