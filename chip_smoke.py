@@ -148,22 +148,43 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      the CPU. It launches no K1–K4 (the MoE dispatch sorts
                      with ``torch.sort``, as the reference with
                      ``jnp.argsort``); the count is printed.
+19. ``train_path`` — granite-moe-1b-a400m trained at full width in
+                     bfloat16 with remat (weights from a seeded generator):
+                     15 AdamW steps on the reference's memorizable batch at
+                     4 x 4096 tokens (the last loss below 0.8 x the first,
+                     every loss and gradient norm finite), one step
+                     profiled (busy, idle share, top device ops) and its
+                     aten ops counted; ``launch.train.train`` for 4 steps
+                     (step walls, tokens/s, the model FLOPs share of the
+                     dense-bf16 peak, peak memory); one step at
+                     microbatches 2 against 1 from one state (atol 5e-2);
+                     float32 gradients with remat equal to those without
+                     it at 2 x 512 tokens, and the bfloat16 gradients'
+                     error per leaf family; the reduced granite (128 and
+                     768 records a layer) and tinyllama on the card
+                     against the CPU (gradients, three steps); a restart
+                     from a checkpoint on the card, bit for bit, and two
+                     uninterrupted runs equal. It launches no K1–K4; the
+                     count is printed.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17 and 18, each counted from zero just
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18 and 19, each counted from zero just
 before the phase's checked runs and read just after; the int64 routes of K2
 and K3 and K3's float route are listed and counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17, 18) runs the build and those phases only, and
+phases 11, 13, 14, 16, 17, 18, 19) runs the build and those phases only, and
 prints no result line.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2325,6 +2346,321 @@ def phase_lm_path(torch, core, build):
     return launches
 
 
+# ------------------------------------------------------------------ training
+#: train_4k's sequence length; the global batch one card takes (train_4k's
+#: is 256)
+TRAIN_SEQ, TRAIN_BATCH = 4096, 4
+#: dense bfloat16 tensor-core peak of one H100 SXM (NVIDIA's data sheet,
+#: without sparsity, at the 700 W power limit)
+BF16_PEAK_FLOPS = 989e12
+#: one train step, card against CPU, reduced models in float32: gradients
+#: (of each leaf's largest magnitude) and three steps' losses and norms
+#: (relative)
+TRAIN_GRAD_TOL, TRAIN_STEP_TOL = 1e-4, 1e-5
+#: microbatches=2 against its step by hand (relative): loss, gradient norm
+#: and first moments; the two differ only in float32 rounding (the norm's
+#: order of summation, the clip scale's quotient)
+MB_TOL = 1e-5
+
+
+def train_grads(torch, model, batch):
+    """(loss, aux, {name: gradient}) of one ``train_loss`` under autograd."""
+    model.requires_grad_(True)
+    loss, aux = model.train_loss(batch)
+    names = [k for k, _ in model.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in model.named_parameters()])
+    return loss.detach(), aux, dict(zip(names, grads))
+
+
+def microbatch_by_hand(torch, model, batch, mb):
+    """The accumulating step's loss, gradient norm and gradients, taken by
+    hand: ``train_loss``'s gradients on each of the batch's ``mb`` row
+    splits, summed in float32 and divided by ``mb``; the losses averaged."""
+    acc, losses = None, []
+    for i in range(mb):
+        part = {k: v.chunk(mb)[i] for k, v in batch.items()}
+        loss, _, g = train_grads(torch, model, part)
+        losses.append(loss.double().item())
+        acc = {k: t.float() for k, t in g.items()} if acc is None else {k: acc[k] + t.float() for k, t in g.items()}
+        del g
+    grads = {k: t / mb for k, t in acc.items()}
+    norm = math.sqrt(sum(t.double().square().sum().item() for t in grads.values()))
+    return dict(loss=sum(losses) / mb, grad_norm=norm, grads=grads)
+
+
+def microbatch_errors(torch, oc, hand, metrics, opt):
+    """Relative errors of an accumulating step against ``hand``: its loss,
+    its gradient norm, and its first moments against (1 - beta1) times the
+    clipped hand gradients, over each leaf's largest magnitude (a moment
+    is the gradient the optimizer saw: a sum in bfloat16, or one
+    microbatch's gradient alone, moves it far past float32's rounding)."""
+    scale = min(1.0, oc.clip_norm / hand["grad_norm"])
+    m_err = 0.0
+    for k, g in hand["grads"].items():
+        want = (1 - oc.betas[0]) * scale * g
+        m_err = max(m_err, ((opt["m"][k].float() - want).abs().max() / want.abs().max().clamp(min=1e-30)).item())
+    return dict(loss=abs(float(metrics["loss"]) - hand["loss"]) / abs(hand["loss"]),
+                grad_norm=abs(float(metrics["grad_norm"]) - hand["grad_norm"]) / hand["grad_norm"], m=m_err)
+
+
+def phase_train_path(torch, core, build):
+    """granite-moe-1b-a400m trained at full width on the card (bfloat16,
+    remat): 15 steps on memorizable data, the ``launch.train`` driver's
+    steps timed and profiled, microbatches against the full batch,
+    float32 gradients with and without remat; the reduced granite and
+    tinyllama on the card against the CPU; a restart from a checkpoint."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import checkpoint, init_all, make_train_step
+
+    build.reset_counts()
+    t_phase = time.perf_counter()
+    out = {"seconds": {}}
+
+    def lap(part):
+        out["seconds"][part] = time.perf_counter() - t_phase - sum(out["seconds"].values())
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    cfg = get_arch(LM_ARCH)
+    if not cfg.remat:
+        fail("train_path", f"{cfg.name} does not rematerialize")
+    shape = ShapeConfig("train_path", TRAIN_SEQ, TRAIN_BATCH, "train")
+    tokens_a_step = TRAIN_SEQ * TRAIN_BATCH
+
+    # 1. memorization at full width: the reference's test_train.py batch at
+    # train_4k's sequence length
+    fresh()
+    model = Model(cfg, seed=20)
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=30)
+    params, opt = init_all(model, oc)
+    step = make_train_step(model, oc)
+    tokens = torch.arange(TRAIN_SEQ, dtype=torch.int32, device="cuda")[None].repeat(TRAIN_BATCH, 1)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    rows = []
+    for _ in range(15):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        row = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), lr=float(m["lr"]),
+                   aux_overflow=bool(m["aux_overflow"]), step_s=time.perf_counter() - t)
+        rows.append(row)
+        print(json.dumps({"train_step": len(rows), **row}), flush=True)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows):
+        fail("train_path", f"memorization: a loss or gradient norm is not finite: {rows}")
+    if not rows[-1]["loss"] < 0.8 * rows[0]["loss"]:
+        fail("train_path", f"memorization: last loss {rows[-1]['loss']} not below 0.8 x {rows[0]['loss']}")
+    out["memorize"] = dict(arch=cfg.name, dtype=cfg.dtype, remat=cfg.remat, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                           params=sum(p.numel() for p in model.parameters()), cfg_param_count=cfg.param_count(),
+                           active_param_count=cfg.active_param_count(), first_loss=rows[0]["loss"],
+                           last_loss=rows[-1]["loss"], ratio=rows[-1]["loss"] / rows[0]["loss"],
+                           criterion="last < 0.8 x first", peak_mem_gib=peak_gib())
+    lap("memorize")
+
+    # one more step on a synthetic batch, profiled (device ops only: a
+    # step's ~10^4 host ops would take long to tabulate), then its aten ops
+    data = synthetic_batch(cfg, shape, 1000)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t = time.perf_counter()
+    params, opt, m = step(params, opt, data)
+    float(m["loss"])
+    profiled_s = time.perf_counter() - t
+    prof.stop()
+    split = device_split(torch, prof)
+    busy_s = sum(ms for ms, _ in split.values()) / 1e3
+    ops = dispatch_count()
+    with ops:
+        params, opt, m = step(params, opt, data)
+        float(m["loss"])
+    top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:10]
+    del model, params, opt, step, m
+    lap("profile")
+
+    # 2. the normal entry point: launch.train.train on synthetic batches;
+    # each step's wall is read from the driver's own log line
+    fresh()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        losses = launch_train.train(cfg, steps=4, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=None,
+                                    log_every=1)[2]
+    print(log.getvalue(), end="", flush=True)
+    walls = [float(w) for w in re.findall(r"wall ([0-9.]+) s", log.getvalue())]
+    if len(walls) != 4 or not all(math.isfinite(x) for x in losses):
+        fail("train_path", f"launch.train: {len(walls)} step walls, losses {losses}")
+    wall = statistics.median(walls[1:])
+    flops = 6 * cfg.active_param_count() * tokens_a_step
+    out["train"] = dict(steps=4, losses=losses, step_walls_s=walls, first_step_s=walls[0], step_wall_s=wall,
+                        tokens_per_step=tokens_a_step, tokens_per_s=tokens_a_step / wall,
+                        model_flops_per_step=flops, model_flops_share=flops / wall / BF16_PEAK_FLOPS,
+                        peak_flops=BF16_PEAK_FLOPS,
+                        peak_flops_source="H100 SXM dense bf16, NVIDIA data sheet",
+                        peak_mem_gib=peak_gib(), profiled_step_s=profiled_s, device_busy_s=busy_s,
+                        idle_share_profiled=1 - busy_s / profiled_s, aten_ops_a_step=ops.n,
+                        top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top])
+    lap("entry_point")
+
+    # 3. microbatches: one step at microbatches=2 against the same step
+    # taken by hand from the same state (each half's gradients summed in
+    # float32 and halved, the losses averaged), then against one step at
+    # microbatches=1 (the reference's OptConfig() and atol)
+    data = synthetic_batch(cfg, shape, 100)
+    oc_mb = OptConfig()
+    mb_out, kept = {}, None
+    for mb in (2, 1):
+        fresh()
+        model = Model(dataclasses.replace(cfg, microbatches=mb), seed=21)
+        params, opt = init_all(model, oc_mb)
+        if mb == 2:
+            hand = microbatch_by_hand(torch, model, data, mb)
+        params, opt, m = make_train_step(model, oc_mb)(params, opt, data)
+        mb_out[f"mb{mb}"] = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]), peak_mem_gib=peak_gib())
+        if mb == 2:
+            mb_err = microbatch_errors(torch, oc_mb, hand, m, opt)
+            del hand
+            kept = {k: p.detach().cpu() for k, p in params.items()}
+        else:
+            diff = max((p.detach().float() - kept[k].to("cuda").float()).abs().max().item()
+                       for k, p in params.items())
+        del model, params, opt, m
+    if not (mb_err["loss"] <= MB_TOL and mb_err["grad_norm"] <= MB_TOL and mb_err["m"] <= MB_TOL):
+        fail("train_path", f"microbatches=2 against its step by hand: {mb_err} (tolerance {MB_TOL})")
+    if not diff <= 5e-2:
+        fail("train_path", f"microbatches=2 against 1: parameters {diff} apart (atol 5e-2)")
+    out["microbatches"] = dict(by_hand_rel_err=mb_err, by_hand_tol=MB_TOL, max_abs_param_diff_vs_mb1=diff,
+                               atol_vs_mb1=5e-2, **mb_out)
+    del kept
+    lap("microbatches")
+
+    # 4. gradients at full width in float32, with and without remat, on 2 x
+    # 512 tokens (8192 records a layer: the capacity rule is active); and
+    # the bfloat16 model's gradients against them, leaf family by family
+    fresh()
+    m16 = Model(cfg, seed=22)
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), params={k: v.float() for k, v in m16.state_dict().items()})
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    toks = torch.randint(0, cfg.vocab, (2, 512), generator=gen, device="cuda", dtype=torch.int32)
+    gbatch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    loss_r, aux_r, g_remat = train_grads(torch, m32, gbatch)
+    m32.cfg = dataclasses.replace(m32.cfg, remat=False)
+    loss_p, aux_p, g_plain = train_grads(torch, m32, gbatch)
+    unequal = [k for k in g_remat if not torch.equal(g_remat[k], g_plain[k])]
+    if unequal or loss_r.item() != loss_p.item():
+        fail("train_path", f"float32 gradients with remat differ from those without it: {unequal[:5]}")
+    del g_plain
+    _, aux16, g16 = train_grads(torch, m16, gbatch)
+    fam = {}
+    for k, g in g_remat.items():
+        leaf = k.split(".")[-1]
+        err, scale = fam.get(leaf, (0.0, 0.0))
+        fam[leaf] = (max(err, (g16[k].float() - g).abs().max().item()), max(scale, g.abs().max().item()))
+    out["grads_full_width"] = dict(tokens=list(toks.shape), records_a_layer=toks.numel() * cfg.moe_top_k,
+                                   remat_equals_plain="bit for bit", loss=loss_r.item(),
+                                   overflow=bool(aux_r["overflow"]), bf16_overflow=bool(aux16["overflow"]),
+                                   bf16_rel_err={f: e / s for f, (e, s) in sorted(fam.items())},
+                                   peak_mem_gib=peak_gib())
+    del m16, m32, g_remat, g16
+    torch.cuda.empty_cache()
+    lap("grads_full_width")
+
+    # 5. the reduced models in float32, card against CPU, batches made on
+    # the CPU: granite on both sides of 512 records, tinyllama, and
+    # tinyllama's three steps at microbatches=2
+    card_cpu = []
+    toc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch, s, mb in ((LM_ARCH, 32, 1), (LM_ARCH, 192, 1), (DENSE_ARCH, 32, 1), (DENSE_ARCH, 32, 2)):
+        rcfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", microbatches=mb)
+        rng = np.random.default_rng(s)
+        toks = torch.from_numpy(rng.integers(0, rcfg.vocab, (2, s)).astype(np.int32))
+        b = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+        cpu = Model(rcfg, device="cpu", seed=7)
+        card = Model(rcfg, device="cuda", params=cpu.state_dict())
+        _, aux_c, g_cpu = train_grads(torch, cpu, b)
+        _, aux_g, g_card = train_grads(torch, card, b)
+        err = max((g_card[k].cpu() - g).abs().max().item() / g.abs().max().item() for k, g in g_cpu.items())
+        flags = [bool(a["overflow"]) for a in (aux_c, aux_g)] if "overflow" in aux_c else None
+        runs = []
+        for mdl in (cpu, card):
+            params, opt = init_all(mdl, toc)
+            stp, got = make_train_step(mdl, toc), []
+            for i in range(3):
+                t3 = torch.from_numpy(np.random.default_rng(100 + i).integers(0, rcfg.vocab, (4, 32)).astype(np.int32))
+                params, opt, m = stp(params, opt, {"tokens": t3, "labels": torch.roll(t3, -1, 1)})
+                got.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append(got)
+        step_err = float(np.max(np.abs(np.array(runs[1]) - np.array(runs[0])) / np.abs(np.array(runs[0]))))
+        if err > TRAIN_GRAD_TOL or step_err > TRAIN_STEP_TOL or (flags and flags[0] != flags[1]):
+            fail("train_path", f"reduced {arch} at {s} tokens, microbatches={mb}: card against CPU gradients {err}, "
+                               f"steps {step_err}, overflow {flags}")
+        card_cpu.append(dict(arch=arch, tokens=[2, s], microbatches=mb, records_a_layer=2 * s * rcfg.moe_top_k if rcfg.moe_experts else None,
+                             overflow=flags, grad_rel_err=err, grad_tol=TRAIN_GRAD_TOL, steps_rel_err=step_err,
+                             steps_tol=TRAIN_STEP_TOL))
+    out["card_vs_cpu"] = card_cpu
+    lap("card_vs_cpu")
+
+    # 6. restart on the card, the reduced granite (bfloat16): 3 steps, save,
+    # 2 more; restore and take the same 2 steps; and a second uninterrupted
+    # run of 5 steps against the first
+    rcfg = get_arch(LM_ARCH).reduced()
+    rshape = ShapeConfig("tiny", 32, 4, "train")
+    roc = OptConfig(total_steps=10)
+
+    def state_of(params, opt):
+        return {"params": {k: p.detach().clone() for k, p in params.items()},
+                "opt": {"m": {k: t.clone() for k, t in opt["m"].items()},
+                        "v": {k: t.clone() for k, t in opt["v"].items()}, "step": opt["step"].clone()}}
+
+    def same(a, b):
+        fa, fb = checkpoint._flatten(a), checkpoint._flatten(b)
+        return [k for (k, x), (_, y) in zip(fa, fb) if not torch.equal(bits(torch, x.reshape(-1)), bits(torch, y.reshape(-1)))]
+
+    finals = []
+    with tempfile.TemporaryDirectory() as d:
+        for run in range(2):
+            model = Model(rcfg, seed=0)
+            params, opt = init_all(model, roc)
+            stp = make_train_step(model, roc)
+            for s in range(5):
+                if run == 0 and s == 3:
+                    checkpoint.save(d, 3, {"params": params, "opt": opt})
+                params, opt, _ = stp(params, opt, synthetic_batch(rcfg, rshape, s))
+            finals.append(state_of(params, opt))
+        spread = same(finals[0], finals[1])
+        restored = checkpoint.restore(d, 3, {"params": params, "opt": opt})
+        model.load_state_dict(restored["params"])
+        params, opt = dict(model.named_parameters()), restored["opt"]
+        for s in (3, 4):
+            params, opt, _ = stp(params, opt, synthetic_batch(rcfg, rshape, s))
+        differ = same(state_of(params, opt), finals[0])
+    if differ or spread:
+        fail("train_path", f"restart: {len(differ)} leaves differ from the uninterrupted run "
+                           f"({differ[:4]}); two uninterrupted runs differ in {spread[:4]}")
+    out["restart"] = dict(arch=rcfg.name, dtype=rcfg.dtype, steps="3 + save + 2, restored + 2",
+                          equal="bit for bit", uninterrupted_runs_equal=True,
+                          leaves=len(checkpoint._flatten(finals[0])))
+    lap("restart")
+    torch.cuda.empty_cache()
+    launches = build.counts()
+    emit({"phase": "train_path", "ok": True, **out, "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def adversarial(p, n_p):
     import numpy as np
 
@@ -2407,7 +2743,8 @@ def main() -> int:
         # it prints no kernels line and no result line
         paths = {"service_path": phase_service_path, "chaos_path": phase_chaos_path,
                  "segmented_path": phase_segmented_path, "planner_path": phase_planner_path,
-                 "delta_path": phase_delta_path, "lm_path": phase_lm_path}
+                 "delta_path": phase_delta_path, "lm_path": phase_lm_path,
+                 "train_path": phase_train_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -2442,6 +2779,12 @@ def main() -> int:
         launches[name] += lm_launches.get(name, 0)
     emit({"phase": "lm_launches", "ok": True, "launches": lm_launches,
           "none_as_expected": not any(lm_launches.values())})
+    # nor does training: the same model under autograd, as in the JAX package
+    train_launches = phase_train_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += train_launches.get(name, 0)
+    emit({"phase": "train_launches", "ok": True, "launches": train_launches,
+          "none_as_expected": not any(train_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 

@@ -42,10 +42,12 @@ from .bsp import BSPMachine, CRAY_T3D, Prediction, predict, theoretical_max_imba
 from .convert import (
     config_from_reference,
     fault_plan_from_reference,
+    opt_state_from_reference,
     params_from_reference,
     planner_from_reference,
     prepared_from_reference,
     service_config_from_reference,
+    tree_to_reference,
     view_from_reference,
 )
 from .segmented import (
@@ -83,6 +85,7 @@ __all__ = [
     "fault_plan_from_reference",
     "gathered_output",
     "pack_segments",
+    "opt_state_from_reference",
     "params_from_reference",
     "phase_fns",
     "planner_from_reference",
@@ -94,5 +97,6 @@ __all__ = [
     "sentinel_for",
     "sort_segments",
     "theoretical_max_imbalance",
+    "tree_to_reference",
     "view_from_reference",
 ]

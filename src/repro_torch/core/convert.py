@@ -9,7 +9,9 @@ A capacity planner's JSON history (the reference's
 view's snapshot (keys and payloads as numpy) installs into the port's
 ``SortedView``, and a ``FaultPlan`` or a ``ServiceConfig`` carries every
 field across, so both packages run one seeded fault schedule. An LM's
-parameter pytree (numpy leaves) becomes the port's parameters by name.
+parameter pytree (numpy leaves) becomes the port's parameters by name, its
+AdamW state the port's state, and port tensors by name go back to the
+reference's stacked tree for a leaf-by-leaf comparison.
 """
 from __future__ import annotations
 
@@ -136,4 +138,37 @@ def params_from_reference(tree: Mapping, device=None) -> Dict[str, torch.Tensor]
                 out.update({f"layers.{i}.{sub}": t[i].to(dev) for i in range(t.shape[0])})
         else:
             out[name] = _host_tensor(leaf).to(dev)
+    return out
+
+
+def opt_state_from_reference(state: Mapping, device=None) -> Dict:
+    """The JAX package's AdamW state ``{"m", "v", "step"}`` (numpy leaves)
+    as the port's: ``m`` and ``v`` split by layer as the parameters are
+    (``params_from_reference``), ``step`` kept as an int32 scalar."""
+    dev = resolve_device(device)
+    return {"m": params_from_reference(state["m"], dev), "v": params_from_reference(state["v"], dev),
+            "step": _host_tensor(np.asarray(state["step"])).to(dev)}
+
+
+def tree_to_reference(named: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of ``params_from_reference``, for parameters, gradients
+    or moments: port tensors by state-dict name as the JAX package's tree of
+    numpy arrays, ``layers.<i>.<leaf>`` stacked into ``layers[leaf]`` of
+    shape ``(L, ...)``. bfloat16 widens to float32 (exactly: numpy has no
+    bfloat16 of its own); other dtypes are kept."""
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out: Dict = {}
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    for name, t in named.items():
+        if name.startswith("layers."):
+            _, i, leaf = name.split(".")
+            layers.setdefault(leaf, {})[int(i)] = host(t)
+        else:
+            out[name] = host(t)
+    if layers:
+        out["layers"] = {leaf: np.stack([per[i] for i in range(len(per))]) for leaf, per in layers.items()}
     return out

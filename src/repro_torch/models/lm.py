@@ -36,8 +36,9 @@ class Model(nn.Module):
 
     ``params`` (by state-dict name, e.g. from ``params_from_reference``)
     gives the weights; without it they are drawn from a ``torch.Generator``
-    on the device seeded with ``seed``. Parameters do not require grad:
-    this slice serves; training waits for ``optim/`` and ``train/``.
+    on the device seeded with ``seed``. Tensors already on ``device`` are
+    taken as they are, not copied. Parameters do not require grad until
+    ``repro_torch.train.init_all`` makes the model trainable.
     """
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0,

@@ -14,6 +14,11 @@ Two choices the reference makes implicitly are explicit here:
 * **Top-k tie order.** ``lax.top_k`` puts the lower index first among
   equal values; ``torch.topk`` on CUDA promises no order, so the router
   takes the first k of a stable descending sort.
+* **Deterministic gradients.** A gather with repeated indices adds its
+  gradients by atomics in the backward pass (on the CPU's threads; a
+  CUDA ``index_put_`` sorts them, serially per row). The dispatch's
+  ``x2d[order // k]`` is a broadcast and a permutation instead, and the
+  combine below gathers by a permutation too.
 * **The combine.** The reference adds each record's weighted output into
   its token with one scatter-add, in sorted-record order. A scatter-add on
   CUDA orders its adds by atomics, so the port gathers each token's k
@@ -126,7 +131,11 @@ def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity
     slot = torch.where(ok, slot, rows)  # dropped records -> scratch row
 
     grouped = torch.zeros((rows + 1, D), dtype=x2d.dtype, device=dev)
-    grouped[slot] = x2d[order // k]
+    # x2d[order // k] as a broadcast and a permutation: its backward sums
+    # each token's k record gradients by a reduction, in a fixed order,
+    # where the gather's would add them by atomics; a dropped record's row
+    # goes to the scratch row and its gradient (0) with it
+    grouped[slot] = x2d[:, None, :].expand(T, k, D).reshape(N, D)[order]
     # (lane, expert, cap) rows -> one (lanes * cap)-row block per expert
     grouped = grouped[:-1].reshape(lanes, E, cap, D).transpose(0, 1).reshape(E, lanes * cap, D)
     h = torch.bmm(grouped, params["w_gate"])
@@ -136,7 +145,12 @@ def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity
     out_g = out_g.reshape(E, lanes, cap, D).transpose(0, 1).reshape(rows, D)
 
     # combine: gather each record's output back and weight it ...
-    rec_out = torch.where(ok[:, None], out_g[torch.clamp(slot, max=rows - 1)], torch.zeros((), dtype=x2d.dtype, device=dev))
+    # a dropped record reads row i % rows (and gets zero): its index is only
+    # a placeholder, and spread so the gather's backward (one sorted pass
+    # that adds a row's repeats one after another) finds no long run of
+    # repeats, where one clamped row would take every dropped record
+    at = torch.where(ok, slot, torch.arange(N, device=dev) % rows)
+    rec_out = torch.where(ok[:, None], out_g[at], torch.zeros((), dtype=x2d.dtype, device=dev))
     rec = (rec_out.float() * probs.reshape(-1)[order][:, None]).to(x2d.dtype)
     return _combine(rec, order, T, k), aux
 

@@ -11,7 +11,8 @@ the reference's leaf names (``wq``, ``w_gate``, ``router``, ...) to layer
 i's tensors. The reference scans over stacked layers; the port loops.
 
 Three entry points per the shape kinds: ``forward_train`` (full logits →
-loss; forward only, no rematerialization), ``prefill`` (build KV cache,
+loss; with ``cfg.remat`` each block is rematerialized in the backward
+pass, the reference's ``jax.checkpoint``), ``prefill`` (build KV cache,
 last-position logits), ``decode_step`` (one token through the cache).
 A cache is ``{"k", "v": (L, B, S_max, KV, hd), "pos"}``; ``pos`` is a
 scalar (every row at one position, the reference's ``decode_step``) or one
@@ -23,6 +24,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention as attn
@@ -74,8 +76,20 @@ def _mlp_block(cfg, lp, h, mesh_info=None, lanes: int = 1):
     return moe_mod.moe_tp(moe_params, h, cfg, lanes=lanes)
 
 
+def _block_train(cfg, mesh_info, x, lp, positions):
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    o, _ = _attention_block(cfg, lp, h, positions, window=cfg.sliding_window)
+    x = x + o
+    h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    y, aux = _mlp_block(cfg, lp, h2, mesh_info)
+    return x + y, aux
+
+
 def _embed(cfg, params, tokens, extras):
-    x = params.embed[tokens.long()]  # (B, S, D)
+    # an embedding lookup, not an index: its backward sums each row's
+    # gradients in a fixed order on every device (the index's adds them by
+    # atomics on the CPU's threads), so a train step is deterministic
+    x = torch.nn.functional.embedding(tokens.long(), params.embed)  # (B, S, D)
     if cfg.family == "vlm" and extras.get("patch_embeds") is not None:
         pe = extras["patch_embeds"].to(x.dtype)  # (B, vt, D)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -98,14 +112,17 @@ def forward_train(
     b, s = tokens.shape
     x = _embed(cfg, params, tokens, extras)
     positions = _positions(b, s, x.device)
+    # rematerialized: a block keeps only its input for the backward pass and
+    # runs again there; the recompute makes the forward's routing decisions
+    # (the dispatch sort is stable, the ops deterministic)
+    remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
     for lp in params.layers:
-        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        o, _ = _attention_block(cfg, lp, h, positions, window=cfg.sliding_window)
-        x = x + o
-        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        y, aux = _mlp_block(cfg, lp, h2, mesh_info)
-        x = x + y
+        if remat:
+            x, aux = checkpoint(_block_train, cfg, mesh_info, x, lp, positions,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = _block_train(cfg, mesh_info, x, lp, positions)
         auxs.append(aux)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = x @ params.lm_head

@@ -1,11 +1,10 @@
-"""Training control plane of the port.
-
-Only ``elastic`` (``StragglerMonitor``, ``plan_remesh``, ``retry_capacity``,
-``StepTimer``) is ported so far: the sort service's dispatcher feeds its
-flight walls to the straggler monitor. The train step and checkpointing
-of the JAX package's ``repro.train`` wait for the LM stack.
-"""
-from . import elastic  # noqa: F401
+"""Training of the port: the train step, checkpoint/restart and the
+elastic control plane (``StragglerMonitor``, ``plan_remesh``,
+``retry_capacity``, ``StepTimer``), as in the JAX package's
+``repro.train``."""
+from .train_step import init_all, make_train_step, train_step  # noqa: F401
+from . import checkpoint, elastic  # noqa: F401
 from .elastic import StepTimer, StragglerMonitor, plan_remesh, retry_capacity
 
-__all__ = ["StepTimer", "StragglerMonitor", "elastic", "plan_remesh", "retry_capacity"]
+__all__ = ["StepTimer", "StragglerMonitor", "checkpoint", "elastic", "init_all", "make_train_step",
+           "plan_remesh", "retry_capacity", "train_step"]
