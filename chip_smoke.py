@@ -166,17 +166,41 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      from a checkpoint on the card, bit for bit, and two
                      uninterrupted runs equal. It launches no K1–K4; the
                      count is printed.
+20. ``recurrent_path`` — the recurrent families (their scans are Python
+                     loops over time, the parity path): xlstm-350m at full
+                     width (24 blocks, d_model 1024, 4 heads, vocab 50 304;
+                     seeded weights) — on its float32 copy a prefill of 64
+                     tokens and 8 decode steps against the prefills of 65
+                     .. 72 (1e-4 of the largest logit) and 8 ``serve()``
+                     streams against ``generate()``; in bfloat16 16
+                     requests of 16–64 tokens and 2 arrivals served on 8
+                     slots (walls, tokens/s, prefill at 256 tokens, the
+                     decode step at 8 lanes and its aten ops, a profiled
+                     window's busy and idle share against its own wall,
+                     peak memory), 15 memorization steps, one profiled and
+                     one counted train step at 3 x 64 tokens, and the
+                     ``launch.train`` driver's 4 steps at 3 x 512;
+                     jamba-1.5-large-398b at its published widths cut to
+                     one super-block (bfloat16 with 8 experts: the carried
+                     state at lm_path's 6e-2, 8 requests on 4 slots,
+                     prefill and decode times; float32 with 2 experts: the
+                     carried state at 1e-4, streams against ``generate()``);
+                     the reduced jamba (two super-blocks) and xlstm on the
+                     card against the CPU (loss, every gradient leaf, three
+                     AdamW steps). It launches no K1–K4; the count is
+                     printed. Every time stands beside the card's
+                     ``nvidia-smi`` name and power limit.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18 and 19, each counted from zero just
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19 and 20, each counted from zero just
 before the phase's checked runs and read just after; the int64 routes of K2
 and K3 and K3's float route are listed and counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17, 18, 19) runs the build and those phases only, and
-prints no result line.
+phases 11, 13, 14, 16, 17, 18, 19, 20) runs the build and those phases only,
+and prints no result line.
 """
 from __future__ import annotations
 
@@ -343,6 +367,14 @@ def device_split(torch, prof, reps: int = 1) -> dict:
         if us > 0:
             split[ev.key] = (us / 1e3 / reps, ev.count)
     return split
+
+
+def idle_share(busy_ms: float, wall_ms: float) -> float:
+    """The device's idle share of one profiled run: 1 - its device busy
+    time over that same run's wall (both in one unit), not clamped. A busy time
+    above the wall (kernels of two streams overlapping, or the profiler's
+    accounting) gives a negative share: a finding to print, not to hide."""
+    return 1 - busy_ms / wall_ms
 
 
 def timed(torch, fn, reps: int = 10, **kw) -> dict:
@@ -1211,8 +1243,9 @@ def phase_sort_kv_path(torch, bops, build):
 
 def where_time_goes(torch, fn, reps: int = 5) -> dict:
     """A run's wall (median of ``reps`` warm calls, host clock around work
-    ending in a sync), its device busy time under ``torch.profiler``, the
-    idle share 1 - busy / wall, and its top device operations."""
+    ending in a sync); one more call under ``torch.profiler``: its own
+    wall, its device busy time, the idle share against that wall
+    (``idle_share``), and its top device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     walls = []
@@ -1224,12 +1257,15 @@ def where_time_goes(torch, fn, reps: int = 5) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
     rows = sorted(((ms, k, c) for k, (ms, c) in device_split(torch, prof).items()), reverse=True)
     busy = sum(r[0] for r in rows)
-    return dict(wall_ms=wall, walls_ms=walls, device_busy_ms=busy, idle_share=max(0.0, 1 - busy / wall),
-                top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:6]])
+    return dict(wall_ms=wall, walls_ms=walls, profiled_wall_ms=prof_wall, device_busy_ms=busy,
+                idle_share=idle_share(busy, prof_wall), top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:6]])
 
 
 def checked_runs(torch, core, build, phase, specs):
@@ -1800,7 +1836,8 @@ def phase_service_path(torch, core, build):
     sort; the overlap check (``LaunchEvents``) read plain on the timed
     depth-2 runs and required, with the card spacer, on one more run (the
     first mix also runs the spacer check with blocking copies, the
-    control); device busy time and idle share over one profiled flush.
+    control); device busy time and idle share of one profiled flush
+    against its own wall.
     Then the open-loop soak of ``table_service_soak`` at this width."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1863,7 +1900,7 @@ def phase_service_path(torch, core, build):
                          first_s=first, wall_ms_depth2=wall2, walls_ms_depth2=walls[2],
                          wall_ms_depth1=statistics.median(walls[1]), walls_ms_depth1=walls[1],
                          keys_per_s=KEYS / (wall2 / 1e3), device_busy_ms=busy,
-                         idle_share=max(0.0, 1 - busy / wall2), profiled_wall_ms=prof_wall * 1e3,
+                         idle_share=idle_share(busy, prof_wall * 1e3), profiled_wall_ms=prof_wall * 1e3,
                          peak_mem_gib=peak, lat_p50_ms=tele["lat_p50_ms"], lat_p99_ms=tele["lat_p99_ms"],
                          launch_rows=plain.rows[:6]))
         torch.cuda.empty_cache()
@@ -2101,12 +2138,88 @@ def lm_requests(np, vocab, n=32, seed=19):
     return [rng.integers(0, vocab, int(m)).astype(np.int32) for m in lengths], rng
 
 
-def check_streams(streams, budgets, eos, what):
+def check_streams(streams, budgets, eos, what, phase="lm_path"):
     for i, (s, b) in enumerate(zip(streams, budgets)):
         if not 1 <= len(s) <= b:
-            fail("lm_path", f"{what}: request {i} answered {len(s)} tokens against a budget of {b}")
+            fail(phase, f"{what}: request {i} answered {len(s)} tokens against a budget of {b}")
         if eos in s.tolist()[:-1]:
-            fail("lm_path", f"{what}: request {i} runs past its EOS")
+            fail(phase, f"{what}: request {i} runs past its EOS")
+
+
+def timed_serve(torch, eng, reqs, slots, sched=None, hook=None):
+    """One ``serve()`` on the host clock around work ending in a sync:
+    (seconds, streams, refills, admission prefetches); ``sched`` maps a
+    decode step to the prompts arriving there, ``hook`` sees every step."""
+    before = (eng.refills, eng.admission_prefetches)
+
+    def arrivals(step):
+        if hook is not None:
+            hook(step)
+        return (sched or {}).get(step)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    streams = eng.serve(reqs, slots=slots, arrivals=arrivals)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, streams, eng.refills - before[0], eng.admission_prefetches - before[1]
+
+
+def profiled_window(torch, first, last):
+    """A ``serve()`` hook that profiles decode steps ``first`` to ``last``
+    (device activity only): ``(hook, result)``, the result holding the
+    window's own wall in seconds and the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    window = {"prof": profile(activities=[ProfilerActivity.CUDA])}
+
+    def hook(step):
+        if step == first:
+            torch.cuda.synchronize()
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        elif step == last:
+            torch.cuda.synchronize()
+            window["wall_s"] = time.perf_counter() - window["t0"]
+            window["prof"].stop()
+
+    return hook, window
+
+
+def decode_rate(torch, model, prompt, lanes, steps=16):
+    """The decode step's ms at ``lanes`` lanes (one position per lane, a
+    cache of twice the prompt), and the aten ops one step dispatches."""
+    cache, _ = model.prefill({"tokens": prompt[None].repeat(lanes, 1)}, cache_len=2 * prompt.shape[0])
+    cache["pos"] = cache["pos"].expand(lanes).clone()
+    tok = torch.zeros(lanes, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / steps
+    ops = dispatch_count()
+    with ops:
+        model.decode_step(cache, tok)
+    return ms, ops.n
+
+
+def prefill_ms(torch, model, prompt, cache_len):
+    model.prefill({"tokens": prompt[None]}, cache_len=cache_len)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model.prefill({"tokens": prompt[None]}, cache_len=cache_len)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def streams_equal_generate(eng, streams, prompts):
+    """The requests whose ``serve()`` stream differs from ``generate()`` of
+    the request alone."""
+    return [i for i, (s, p) in enumerate(zip(streams, prompts))
+            if s.tolist() != eng.generate(p[None]).cpu().numpy()[0][: len(s)].tolist()]
 
 
 def phase_lm_path(torch, core, build):
@@ -2118,7 +2231,6 @@ def phase_lm_path(torch, core, build):
     import dataclasses
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.models import Model, moe, transformer
@@ -2198,39 +2310,15 @@ def phase_lm_path(torch, core, build):
     scfg = ServeConfig(max_new_tokens=32, temperature=0.0)
     lengths = np.asarray([len(p) for p in prompts], np.int32)
 
-    def serve(eng, reqs=prompts, arrive=True, hook=None):
-        sched = {8: late[:2], 16: late[2:]} if arrive else {}
-        before = (eng.refills, eng.admission_prefetches)
-
-        def arrivals(step):
-            if hook is not None:
-                hook(step)
-            return sched.get(step)
-
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        streams = eng.serve(reqs, slots=8, arrivals=arrivals)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t, streams, (eng.refills - before[0], eng.admission_prefetches - before[1])
+    sched = {8: late[:2], 16: late[2:]}
 
     # the profiler over a steady window of one more warm run: decode steps
     # 8 to 40 (two arrivals folding, refills and prefetched prefills in it);
     # the whole run's ~300k kernels would take minutes to tabulate
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    window = {}
-
-    def profile_window(step):
-        if step == 8:
-            torch.cuda.synchronize()
-            prof.start()
-            window["t0"] = time.perf_counter()
-        elif step == 40:
-            torch.cuda.synchronize()
-            window["wall"] = time.perf_counter() - window["t0"]
-            prof.stop()
+    hook, window = profiled_window(torch, 8, 40)
 
     eng = ServeEngine(model, scfg)
-    first_s, streams, (refills, prefetches) = serve(eng)
+    first_s, streams, refills, prefetches = timed_serve(torch, eng, prompts, 8, sched)
     budgets = [scfg.max_new_tokens] * len(streams)
     if len(streams) != len(prompts) + len(late):
         fail("lm_path", f"{len(streams)} streams for {len(prompts) + len(late)} requests")
@@ -2242,12 +2330,12 @@ def phase_lm_path(torch, core, build):
         fail("lm_path", "the admission order is not the stable argsort of the prompt lengths")
     walls = []
     for _ in range(3):
-        wall, again, _ = serve(eng)
+        wall, again, _, _ = timed_serve(torch, eng, prompts, 8, sched)
         walls.append(wall)
         if [a.tolist() for a in again] != [s.tolist() for s in streams]:
             fail("lm_path", "a warm serve() gave other greedy streams")
-    serve(eng, hook=profile_window)
-    split = device_split(torch, prof)
+    timed_serve(torch, eng, prompts, 8, sched, hook)
+    split = device_split(torch, window["prof"])
     busy = sum(ms for ms, _ in split.values())
     lap("serve_timed_and_profiled")
     wall = statistics.median(walls)
@@ -2260,49 +2348,31 @@ def phase_lm_path(torch, core, build):
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t) * 1e3)
     # the pure decode rate at 8 lanes of a 544-token cache
-    cache, _ = model.prefill({"tokens": torch.from_numpy(prompts[0][:512])[None].repeat(8, 1)}, cache_len=1024)
-    cache["pos"] = cache["pos"].expand(8).clone()
-    tok = torch.zeros(8, dtype=torch.int32, device="cuda")
-    for _ in range(3):
-        model.decode_step(cache, tok)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(32):
-        logits, cache = model.decode_step(cache, tok)
-        tok = logits.argmax(-1).int()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t) * 1e3 / 32
-    ops = dispatch_count()
-    with ops:
-        model.decode_step(cache, tok)
+    step_ms, step_ops = decode_rate(torch, model, torch.from_numpy(prompts[0][:512]).cuda(), 8, steps=32)
     rows = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)
-    bf16_match = sum(
-        s.tolist() == eng.generate(p[None]).cpu().numpy()[0][: len(s)].tolist()
-        for s, p in zip(streams[:8], prompts[:8]))
+    bf16_match = 8 - len(streams_equal_generate(eng, streams[:8], prompts[:8]))
     out["serve"] = dict(requests=len(prompts), arrivals=len(late), slots=8, max_new_tokens=scfg.max_new_tokens,
                         eos_id=scfg.eos_id, prompt_tokens=int(lengths.sum() + sum(len(p) for p in late)),
                         tokens_generated=generated, refills=refills, admission_prefetches=prefetches,
                         first_s=first_s, wall_s=wall, walls_s=walls,
                         tokens_per_s=generated / wall, mean_prefill_ms=statistics.mean(prefill_ms),
                         max_prefill_ms=max(prefill_ms), decode_step_ms_8_lanes=step_ms,
-                        decode_step_dispatched_ops=ops.n, host_us_per_op=step_ms * 1e3 / ops.n,
+                        decode_step_dispatched_ops=step_ops, host_us_per_op=step_ms * 1e3 / step_ops,
                         decode_tokens_per_s=8 / (step_ms / 1e3), profiled_steps="8-40",
-                        profiled_wall_s=window["wall"], device_busy_s=busy / 1e3,
-                        idle_share=max(0.0, 1 - busy / 1e3 / window["wall"]),
+                        profiled_wall_s=window["wall_s"], device_busy_s=busy / 1e3,
+                        idle_share=idle_share(busy, window["wall_s"] * 1e3),
                         top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:8]],
                         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
                         bf16_streams_equal_generate=f"{bf16_match} of 8")
-    del cache, logits
     lap("serve_prefill_decode_generate")
 
     # float32: the same mix's first 8 requests, each stream against generate()
     eng32 = ServeEngine(m32, scfg)
-    _, streams32, _ = serve(eng32, prompts[:8], arrive=False)
+    _, streams32, _, _ = timed_serve(torch, eng32, prompts[:8], 8)
     check_streams(streams32, budgets, scfg.eos_id, "float32 serve")
-    for i, (s, p) in enumerate(zip(streams32, prompts[:8])):
-        row = eng32.generate(p[None]).cpu().numpy()[0]
-        if s.tolist() != row[: len(s)].tolist():
-            fail("lm_path", f"float32 request {i}: serve() {s.tolist()} != generate() {row.tolist()}")
+    differ = streams_equal_generate(eng32, streams32, prompts[:8])
+    if differ:
+        fail("lm_path", f"float32: serve() streams of requests {differ} differ from generate()")
     out["float32_streams_equal_generate"] = 8
     lap("float32_equality")
     del model, m32, eng, eng32
@@ -2403,6 +2473,60 @@ def microbatch_errors(torch, oc, hand, metrics, opt):
                 grad_norm=abs(float(metrics["grad_norm"]) - hand["grad_norm"]) / hand["grad_norm"], m=m_err)
 
 
+def profiled_step(torch, step, params, opt, data):
+    """One train step under ``torch.profiler`` (device activity only: a
+    step's host ops would take long to tabulate), then one more counted by
+    ``dispatch_count``: ``(params, opt, own wall in s, device split, aten
+    ops)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t = time.perf_counter()
+    params, opt, m = step(params, opt, data)
+    float(m["loss"])
+    wall_s = time.perf_counter() - t
+    prof.stop()
+    split = device_split(torch, prof)
+    ops = dispatch_count()
+    with ops:
+        params, opt, m = step(params, opt, data)
+        float(m["loss"])
+    return params, opt, wall_s, split, ops.n
+
+
+def driver_steps(torch, launch_train, cfg, batch, seq, phase):
+    """``launch.train.train`` for 4 steps on synthetic batches; each step's
+    wall read from the driver's own log line: ``(losses, walls)``."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        losses = launch_train.train(cfg, steps=4, batch=batch, seq=seq, ckpt_dir=None, log_every=1)[2]
+    print(log.getvalue(), end="", flush=True)
+    walls = [float(w) for w in re.findall(r"wall ([0-9.]+) s", log.getvalue())]
+    if len(walls) != 4 or not all(math.isfinite(x) for x in losses):
+        fail(phase, f"{cfg.name} launch.train: {len(walls)} step walls, losses {losses}")
+    return losses, walls
+
+
+def three_steps(torch, models, vocab, oc, init_all, make_train_step):
+    """Three AdamW steps of each model from its own weights on the same
+    CPU-made batches (4 x 32 tokens): the (loss, gradient norm) of every
+    step, one list per model."""
+    import numpy as np
+
+    runs = []
+    for mdl in models:
+        params, opt = init_all(mdl, oc)
+        stp, got = make_train_step(mdl, oc), []
+        for i in range(3):
+            t3 = torch.from_numpy(np.random.default_rng(100 + i).integers(0, vocab, (4, 32)).astype(np.int32))
+            params, opt, m = stp(params, opt, {"tokens": t3, "labels": torch.roll(t3, -1, 1)})
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append(got)
+    return runs
+
+
 def phase_train_path(torch, core, build):
     """granite-moe-1b-a400m trained at full width on the card (bfloat16,
     remat): 15 steps on memorizable data, the ``launch.train`` driver's
@@ -2413,7 +2537,6 @@ def phase_train_path(torch, core, build):
     import tempfile
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
@@ -2472,38 +2595,18 @@ def phase_train_path(torch, core, build):
                            criterion="last < 0.8 x first", peak_mem_gib=peak_gib())
     lap("memorize")
 
-    # one more step on a synthetic batch, profiled (device ops only: a
-    # step's ~10^4 host ops would take long to tabulate), then its aten ops
+    # one more step on a synthetic batch, profiled, then its aten ops
     data = synthetic_batch(cfg, shape, 1000)
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    torch.cuda.synchronize()
-    prof.start()
-    t = time.perf_counter()
-    params, opt, m = step(params, opt, data)
-    float(m["loss"])
-    profiled_s = time.perf_counter() - t
-    prof.stop()
-    split = device_split(torch, prof)
+    params, opt, profiled_s, split, n_ops = profiled_step(torch, step, params, opt, data)
     busy_s = sum(ms for ms, _ in split.values()) / 1e3
-    ops = dispatch_count()
-    with ops:
-        params, opt, m = step(params, opt, data)
-        float(m["loss"])
     top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:10]
-    del model, params, opt, step, m
+    del model, params, opt, step
     lap("profile")
 
     # 2. the normal entry point: launch.train.train on synthetic batches;
     # each step's wall is read from the driver's own log line
     fresh()
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        losses = launch_train.train(cfg, steps=4, batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=None,
-                                    log_every=1)[2]
-    print(log.getvalue(), end="", flush=True)
-    walls = [float(w) for w in re.findall(r"wall ([0-9.]+) s", log.getvalue())]
-    if len(walls) != 4 or not all(math.isfinite(x) for x in losses):
-        fail("train_path", f"launch.train: {len(walls)} step walls, losses {losses}")
+    losses, walls = driver_steps(torch, launch_train, cfg, TRAIN_BATCH, TRAIN_SEQ, "train_path")
     wall = statistics.median(walls[1:])
     flops = 6 * cfg.active_param_count() * tokens_a_step
     out["train"] = dict(steps=4, losses=losses, step_walls_s=walls, first_step_s=walls[0], step_wall_s=wall,
@@ -2512,7 +2615,7 @@ def phase_train_path(torch, core, build):
                         peak_flops=BF16_PEAK_FLOPS,
                         peak_flops_source="H100 SXM dense bf16, NVIDIA data sheet",
                         peak_mem_gib=peak_gib(), profiled_step_s=profiled_s, device_busy_s=busy_s,
-                        idle_share_profiled=1 - busy_s / profiled_s, aten_ops_a_step=ops.n,
+                        idle_share_profiled=idle_share(busy_s, profiled_s), aten_ops_a_step=n_ops,
                         top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top])
     lap("entry_point")
 
@@ -2595,15 +2698,7 @@ def phase_train_path(torch, core, build):
         _, aux_g, g_card = train_grads(torch, card, b)
         err = max((g_card[k].cpu() - g).abs().max().item() / g.abs().max().item() for k, g in g_cpu.items())
         flags = [bool(a["overflow"]) for a in (aux_c, aux_g)] if "overflow" in aux_c else None
-        runs = []
-        for mdl in (cpu, card):
-            params, opt = init_all(mdl, toc)
-            stp, got = make_train_step(mdl, toc), []
-            for i in range(3):
-                t3 = torch.from_numpy(np.random.default_rng(100 + i).integers(0, rcfg.vocab, (4, 32)).astype(np.int32))
-                params, opt, m = stp(params, opt, {"tokens": t3, "labels": torch.roll(t3, -1, 1)})
-                got.append((float(m["loss"]), float(m["grad_norm"])))
-            runs.append(got)
+        runs = three_steps(torch, (cpu, card), rcfg.vocab, toc, init_all, make_train_step)
         step_err = float(np.max(np.abs(np.array(runs[1]) - np.array(runs[0])) / np.abs(np.array(runs[0]))))
         if err > TRAIN_GRAD_TOL or step_err > TRAIN_STEP_TOL or (flags and flags[0] != flags[1]):
             fail("train_path", f"reduced {arch} at {s} tokens, microbatches={mb}: card against CPU gradients {err}, "
@@ -2661,6 +2756,298 @@ def phase_train_path(torch, core, build):
     return launches
 
 
+# ------------------------------------------------------ the recurrent families
+REC_ARCH, HYB_ARCH = "xlstm-350m", "jamba-1.5-large-398b"
+#: the xlstm driver's batch x length: each mLSTM step saves about 2 MB a
+#: row for the backward pass (C and v k^T, float32), ~22 GB a row of 512
+#: over the 21 mLSTM blocks (2 x 512 peaked at 47.4 GiB), so 3 x 512 fits
+#: the card's 80 GB and 4 x 512 does not. The step is host-bound (~10^6
+#: aten ops at 512 tokens whatever the batch), so a longer row would
+#: lengthen it and a wider batch does not
+REC_TRAIN_BATCH, REC_TRAIN_SEQ = 3, 512
+#: the profiled and the counted step's batch x length: the profiler takes
+#: minutes to tabulate the ~10^6 kernels of a step at 512 tokens
+REC_PROFILE_BATCH, REC_PROFILE_SEQ = 3, 64
+#: the xlstm serving mix's longest prompt: 16 requests of 16 to 64 tokens
+#: (a prefill runs ~500 aten ops a token on the host, ~10 ms a token: 256
+#: would make each serve ~15 s, past the phase's time)
+REC_PROMPT_MAX = 64
+#: jamba at its published widths, cut to one super-block (8 layers: 7
+#: Mamba, 1 attention, 4 dense and 4 MoE MLPs) and to 8 experts in bfloat16
+#: (25.8 B parameters, ~52 GB) and 2 in float32 (11.3 B, ~45 GB): one
+#: super-block with all 16 experts is 45.1 B parameters, 90 GB in bfloat16
+HYB_CUT = dict(n_layers=8)
+HYB_EXPERTS_BF16, HYB_EXPERTS_F32 = 8, 2
+#: a prefill of S then k decode steps against prefills of S + 1 .. S + k,
+#: relative to the largest logit: float32, and bfloat16 at lm_path's 6e-2
+CARRY_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
+
+
+def carried_error(torch, model, tokens, s):
+    """Prefill ``tokens[:, :s]``, then decode the rest one token at a time:
+    each step's logits against the last logits of a teacher-forced prefill
+    of the same prefix. Returns (max |difference| / max |logits|, max
+    |logits|) over the steps."""
+    n = tokens.shape[1]
+    cache, _ = model.prefill({"tokens": tokens[:, :s]}, cache_len=n)
+    err = scale = 0.0
+    for j in range(s, n):
+        dec, cache = model.decode_step(cache, tokens[:, j])
+        _, full = model.prefill({"tokens": tokens[:, :j + 1]}, cache_len=n)
+        scale = max(scale, full.float().abs().max().item())
+        err = max(err, (dec.float() - full.float()).abs().max().item())
+    return err / scale, scale
+
+
+def recurrent_requests(np, vocab, n, lo, hi, seed):
+    """``n`` prompts: lengths from ``default_rng(seed).integers(lo, hi + 1)``,
+    token ids from the same generator; and the generator."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, n)
+    return [rng.integers(0, vocab, int(m)).astype(np.int32) for m in lengths], rng
+
+
+def leaf_grad_errors(torch, got, want):
+    """Each leaf's largest |got - want| over its largest |want|, that
+    magnitude floored at 1e-3 of the largest over all leaves: a leaf whose
+    gradient is rounding noise (mLSTM's ``b_i``, invisible to the
+    normalised read) is held at the model's scale."""
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    return {k: (got[k].cpu() - g).abs().max().item() / max(g.abs().max().item(), floor) for k, g in want.items()}
+
+
+def phase_recurrent_path(torch, core, build):
+    """The recurrent families on the card: xlstm-350m at full width (float32
+    carried state against the scan, float32 streams against ``generate()``,
+    bfloat16 serving and training); jamba-1.5-large-398b at its published
+    widths cut to one super-block (bfloat16 with 8 experts, float32 with
+    2); the reduced jamba (two super-blocks) and xlstm on the card against
+    the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train import init_all, make_train_step
+
+    build.reset_counts()
+    t_phase = time.perf_counter()
+    out = {"seconds": {}, "device": nvidia_smi()}
+
+    def lap(part):
+        out["seconds"][part] = time.perf_counter() - t_phase - sum(out["seconds"].values())
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    # 1. xlstm-350m at full width: its float32 copy first
+    cfg = get_arch(REC_ARCH)
+    fresh()
+    model = Model(cfg, seed=21)
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), params={k: v.float() for k, v in model.state_dict().items()})
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    toks = torch.randint(0, cfg.vocab, (1, 72), generator=gen, device="cuda", dtype=torch.int32)
+    err32, scale32 = carried_error(torch, m32, toks, 64)
+    err16, scale16 = carried_error(torch, model, toks, 64)  # printed, not held
+    if err32 > CARRY_TOL["float32"]:
+        fail("recurrent_path", f"{REC_ARCH}: decode after a prefill of 64 against prefills of 65..72: float32 "
+                               f"{err32} > {CARRY_TOL['float32']}")
+    n_params = sum(p.numel() for p in model.parameters())
+    out["xlstm"] = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+                        vocab=cfg.vocab, slstm_blocks=len(model.slstm), params=n_params,
+                        cfg_param_count=cfg.param_count(),
+                        carried=dict(prefill=64, decode_steps=8, float32_rel_err=err32, bfloat16_rel_err=err16,
+                                     logits_max=scale32, bf16_logits_max=scale16, tol=CARRY_TOL["float32"]))
+    lap("xlstm_carried_state")
+
+    scfg = ServeConfig(max_new_tokens=32, temperature=0.0)
+    prompts, rng = recurrent_requests(np, cfg.vocab, 16, 16, REC_PROMPT_MAX, 21)
+    late = [rng.integers(0, cfg.vocab, int(m)).astype(np.int32) for m in rng.integers(16, REC_PROMPT_MAX + 1, 2)]
+    sched = {8: late[:1], 16: late[1:]}
+    # float32: 8 requests (cut to 32 tokens) on 8 slots, 16 tokens each,
+    # each stream against generate()
+    eng32 = ServeEngine(m32, ServeConfig(max_new_tokens=16, temperature=0.0))
+    short = [p[:32] for p in prompts[:8]]
+    _, streams32, _, _ = timed_serve(torch, eng32, short, 8)
+    check_streams(streams32, [16] * 8, scfg.eos_id, "xlstm float32 serve", "recurrent_path")
+    differ = streams_equal_generate(eng32, streams32, short)
+    if differ:
+        fail("recurrent_path", f"{REC_ARCH} float32: serve() streams of requests {differ} differ from generate()")
+    out["xlstm"]["float32_streams_equal_generate"] = len(short)
+    del m32, eng32
+    lap("xlstm_float32_streams")
+
+    # bfloat16 serving: 16 requests + 2 arrivals on 8 slots, 32 greedy tokens each
+    fresh()
+    eng = ServeEngine(model, scfg)
+    first_s, streams, refills, prefetches = timed_serve(torch, eng, prompts, 8, sched)
+    if len(streams) != len(prompts) + len(late):
+        fail("recurrent_path", f"{len(streams)} streams for {len(prompts) + len(late)} requests")
+    check_streams(streams, [scfg.max_new_tokens] * len(streams), scfg.eos_id, "xlstm serve", "recurrent_path")
+    if not (refills >= 1 and prefetches >= refills):
+        fail("recurrent_path", f"xlstm serve: refills {refills}, admission prefetches {prefetches}")
+    walls = []
+    for _ in range(3):
+        wall, again, _, _ = timed_serve(torch, eng, prompts, 8, sched)
+        walls.append(wall)
+        if [a.tolist() for a in again] != [s.tolist() for s in streams]:
+            fail("recurrent_path", "xlstm: a warm serve() gave other greedy streams")
+    hook, window = profiled_window(torch, 8, 24)
+    timed_serve(torch, eng, prompts, 8, sched, hook)
+    split = device_split(torch, window["prof"])
+    busy_ms = sum(ms for ms, _ in split.values())
+    top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:8]
+    step_ms, step_ops = decode_rate(torch, model, torch.from_numpy(prompts[0][:64]).cuda(), 8)
+    p256 = torch.randint(0, cfg.vocab, (256,), generator=gen, device="cuda", dtype=torch.int32)
+    generated = sum(len(s) for s in streams)
+    wall = statistics.median(walls)
+    out["xlstm"]["serve"] = dict(
+        requests=len(prompts), arrivals=len(late), slots=8, max_new_tokens=scfg.max_new_tokens,
+        prompt_tokens=int(sum(len(p) for p in prompts + late)), tokens_generated=generated, refills=refills,
+        admission_prefetches=prefetches, first_s=first_s, wall_s=wall, walls_s=walls, tokens_per_s=generated / wall,
+        prefill_ms_256=prefill_ms(torch, model, p256, 288), decode_step_ms_8_lanes=step_ms,
+        decode_step_aten_ops=step_ops, profiled_steps="8-24", profiled_wall_s=window["wall_s"],
+        device_busy_s=busy_ms / 1e3, idle_share=idle_share(busy_ms, window["wall_s"] * 1e3),
+        top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top], peak_mem_gib=peak_gib())
+    del eng
+    lap("xlstm_serve")
+
+    # bfloat16 training with float32 AdamW moments: 15 memorization steps
+    # at 2 x 32 tokens, one profiled step and one counted, then the
+    # driver's own 4 steps
+    fresh()
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=30)
+    params, opt = init_all(model, oc)
+    step = make_train_step(model, oc)
+    tokens = torch.arange(32, dtype=torch.int32, device="cuda")[None].repeat(2, 1)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    losses = []
+    for _ in range(15):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    if not all(map(math.isfinite, losses)) or not losses[-1] < 0.8 * losses[0]:
+        fail("recurrent_path", f"{REC_ARCH} memorization: losses {losses}")
+    data = synthetic_batch(cfg, ShapeConfig("recurrent_path", REC_PROFILE_SEQ, REC_PROFILE_BATCH, "train"), 1000)
+    params, opt, profiled_s, split, n_ops = profiled_step(torch, step, params, opt, data)
+    busy_ms = sum(ms for ms, _ in split.values())
+    top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:8]
+    del model, params, opt, step, m, split
+    lap("xlstm_memorize_profile")
+    fresh()
+    dlosses, dwalls = driver_steps(torch, launch_train, cfg, REC_TRAIN_BATCH, REC_TRAIN_SEQ, "recurrent_path")
+    tokens_a_step = REC_TRAIN_BATCH * REC_TRAIN_SEQ
+    wall = statistics.median(dwalls[1:])
+    flops = 6 * cfg.param_count() * tokens_a_step
+    out["xlstm"]["train"] = dict(
+        batch=REC_TRAIN_BATCH, seq=REC_TRAIN_SEQ, memorize=dict(tokens=[2, 32], first_loss=losses[0],
+                                                                 last_loss=losses[-1], ratio=losses[-1] / losses[0]),
+        steps=4, losses=dlosses, step_walls_s=dwalls, step_wall_s=wall, tokens_per_s=tokens_a_step / wall,
+        model_flops_per_step=flops, model_flops_share=flops / wall / BF16_PEAK_FLOPS, peak_flops=BF16_PEAK_FLOPS,
+        profiled_tokens=[REC_PROFILE_BATCH, REC_PROFILE_SEQ], profiled_step_s=profiled_s,
+        device_busy_s=busy_ms / 1e3, idle_share=idle_share(busy_ms, profiled_s * 1e3), aten_ops_a_step=n_ops,
+        top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top], peak_mem_gib=peak_gib())
+    lap("xlstm_train")
+
+    # 2. jamba at its published widths, one super-block: bfloat16, 8 experts
+    fresh()
+    jcfg = dataclasses.replace(get_arch(HYB_ARCH), moe_experts=HYB_EXPERTS_BF16, **HYB_CUT)
+    jamba = Model(jcfg, seed=23)
+    torch.cuda.synchronize()
+    jout = dict(arch=jcfg.name, cut=dict(HYB_CUT, moe_experts=HYB_EXPERTS_BF16,
+                                         moe_experts_float32=HYB_EXPERTS_F32,
+                                         published=dict(n_layers=72, moe_experts=16)),
+                d_model=jcfg.d_model, n_heads=jcfg.n_heads, n_kv_heads=jcfg.n_kv_heads, d_ff=jcfg.d_ff,
+                vocab=jcfg.vocab, mamba=dict(d_state=jcfg.mamba_d_state, expand=jcfg.mamba_expand,
+                                             d_conv=jcfg.mamba_d_conv),
+                params=sum(p.numel() for p in jamba.parameters()), cfg_param_count=jcfg.param_count(),
+                init_peak_gib=peak_gib())
+    jtoks = torch.randint(0, jcfg.vocab, (1, 68), generator=gen, device="cuda", dtype=torch.int32)
+    jerr16, jscale16 = carried_error(torch, jamba, jtoks, 64)
+    if jerr16 > CARRY_TOL["bfloat16"]:
+        fail("recurrent_path", f"{HYB_ARCH} bfloat16: decode after a prefill of 64: {jerr16} > {CARRY_TOL}")
+    jprompts, _ = recurrent_requests(np, jcfg.vocab, 8, 16, 256, 22)
+    jscfg = ServeConfig(max_new_tokens=16, temperature=0.0)
+    jeng = ServeEngine(jamba, jscfg)
+    jfirst, jstreams, jrefills, _ = timed_serve(torch, jeng, jprompts, 4)
+    check_streams(jstreams, [jscfg.max_new_tokens] * len(jstreams), jscfg.eos_id, "jamba serve", "recurrent_path")
+    jwall, again, _, _ = timed_serve(torch, jeng, jprompts, 4)
+    if [a.tolist() for a in again] != [s.tolist() for s in jstreams]:
+        fail("recurrent_path", "jamba: a warm serve() gave other greedy streams")
+    jstep_ms, jstep_ops = decode_rate(torch, jamba, torch.from_numpy(jprompts[0]).cuda(), 4)
+    jgen = sum(len(s) for s in jstreams)
+    jout["bfloat16"] = dict(
+        carried=dict(prefill=64, decode_steps=4, rel_err=jerr16, logits_max=jscale16, tol=CARRY_TOL["bfloat16"]),
+        serve=dict(requests=len(jprompts), slots=4, max_new_tokens=jscfg.max_new_tokens,
+                   prompt_tokens=int(sum(map(len, jprompts))), tokens_generated=jgen, refills=jrefills,
+                   first_s=jfirst, warm_wall_s=jwall, tokens_per_s=jgen / jwall),
+        prefill_ms_256=prefill_ms(torch, jamba, torch.randint(0, jcfg.vocab, (256,), generator=gen, device="cuda",
+                                                              dtype=torch.int32), 288),
+        decode_step_ms_4_lanes=jstep_ms, decode_step_aten_ops=jstep_ops, peak_mem_gib=peak_gib())
+    del jamba, jeng
+    lap("jamba_bf16")
+
+    # float32, 2 experts: the carried state at 1e-4, and serve() against generate()
+    fresh()
+    j32 = Model(dataclasses.replace(jcfg, dtype="float32", moe_experts=HYB_EXPERTS_F32), seed=24)
+    jerr32, jscale32 = carried_error(torch, j32, jtoks, 64)
+    if jerr32 > CARRY_TOL["float32"]:
+        fail("recurrent_path", f"{HYB_ARCH} float32: decode after a prefill of 64: {jerr32} > {CARRY_TOL}")
+    jeng32 = ServeEngine(j32, ServeConfig(max_new_tokens=8, temperature=0.0))
+    jshort = [p[:64] for p in jprompts[:4]]
+    _, jstreams32, _, _ = timed_serve(torch, jeng32, jshort, 4)
+    differ = streams_equal_generate(jeng32, jstreams32, jshort)
+    if differ:
+        fail("recurrent_path", f"{HYB_ARCH} float32: serve() streams of requests {differ} differ from generate()")
+    jout["float32"] = dict(params=sum(p.numel() for p in j32.parameters()),
+                           carried=dict(prefill=64, decode_steps=4, rel_err=jerr32, logits_max=jscale32,
+                                        tol=CARRY_TOL["float32"]),
+                           streams_equal_generate=len(jshort), peak_mem_gib=peak_gib())
+    out["jamba"] = jout
+    del j32, jeng32
+    torch.cuda.empty_cache()
+    lap("jamba_float32")
+
+    # 3. the reduced models in float32, card against CPU: loss, every
+    # gradient leaf, three AdamW steps' losses and norms
+    card_cpu = []
+    toc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch, over in ((HYB_ARCH, dict(n_layers=16)), (REC_ARCH, {})):
+        rcfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **over)
+        r = np.random.default_rng(32)
+        t2 = torch.from_numpy(r.integers(0, rcfg.vocab, (2, 32)).astype(np.int32))
+        b = {"tokens": t2, "labels": torch.roll(t2, -1, 1)}
+        cpu = Model(rcfg, device="cpu", seed=7)
+        card = Model(rcfg, device="cuda", params=cpu.state_dict())
+        loss_c, _, g_cpu = train_grads(torch, cpu, b)
+        loss_g, _, g_card = train_grads(torch, card, b)
+        gerr = max(leaf_grad_errors(torch, g_card, g_cpu).values())
+        lerr = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        runs = three_steps(torch, (cpu, card), rcfg.vocab, toc, init_all, make_train_step)
+        serr = float(np.max(np.abs(np.array(runs[1]) - np.array(runs[0])) / np.abs(np.array(runs[0]))))
+        if gerr > TRAIN_GRAD_TOL or lerr > TRAIN_STEP_TOL or serr > TRAIN_STEP_TOL:
+            fail("recurrent_path", f"reduced {arch} {over}: card against CPU loss {lerr}, gradients {gerr}, "
+                                   f"steps {serr}")
+        card_cpu.append(dict(arch=arch, overrides=over, tokens=[2, 32], loss_rel_err=lerr, grad_rel_err=gerr,
+                             grad_tol=TRAIN_GRAD_TOL, steps_rel_err=serr, steps_tol=TRAIN_STEP_TOL))
+    out["card_vs_cpu"] = card_cpu
+    lap("card_vs_cpu")
+    torch.cuda.empty_cache()
+    launches = build.counts()
+    emit({"phase": "recurrent_path", "ok": True, **out, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def adversarial(p, n_p):
     import numpy as np
 
@@ -2707,11 +3094,10 @@ def phase_profile(torch, core):
         rows = [(ms, k, c) for k, (ms, c) in device_split(torch, prof).items()]
         rows.sort(reverse=True)
         busy = sum(r[0] for r in rows)
-        # idle share against the unprofiled wall: the profiler slows the host
         cells.append(dict(algorithm=algo, dist=dist, payload=bool(nv), stage_ms=stages, wall_ms=wall_ms,
                           walls_ms=walls_ms,
                           profiled_wall_ms=profiled_ms, device_busy_ms=busy,
-                          idle_share=max(0.0, 1 - busy / wall_ms),
+                          idle_share=idle_share(busy, profiled_ms),
                           top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in rows[:8]]))
     emit({"phase": "profile", "ok": True, "cells": cells})
 
@@ -2744,7 +3130,7 @@ def main() -> int:
         paths = {"service_path": phase_service_path, "chaos_path": phase_chaos_path,
                  "segmented_path": phase_segmented_path, "planner_path": phase_planner_path,
                  "delta_path": phase_delta_path, "lm_path": phase_lm_path,
-                 "train_path": phase_train_path}
+                 "train_path": phase_train_path, "recurrent_path": phase_recurrent_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -2785,6 +3171,13 @@ def main() -> int:
         launches[name] += train_launches.get(name, 0)
     emit({"phase": "train_launches", "ok": True, "launches": train_launches,
           "none_as_expected": not any(train_launches.values())})
+    # nor do the recurrent families: their scans are Python loops over time,
+    # the hybrid's MoE dispatch sorts with torch.sort, as in the JAX package
+    recurrent_launches = phase_recurrent_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += recurrent_launches.get(name, 0)
+    emit({"phase": "recurrent_launches", "ok": True, "launches": recurrent_launches,
+          "none_as_expected": not any(recurrent_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 

@@ -16,6 +16,7 @@ reference's stacked tree for a leaf-by-leaf comparison.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Mapping, Sequence
 
 import numpy as np
@@ -124,20 +125,52 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+#: the reference's stacked sub-trees: each path here holds leaves with one
+#: leading stacked axis per listed prefix of it (jamba's ``blocks.mamba``
+#: leaves are ``(blocks, slot, ...)``: ``blocks`` and ``blocks.mamba``)
+_STACKED = {("layers",), ("blocks",), ("blocks", "mamba"), ("blocks", "dense"), ("blocks", "moe"),
+            ("blocks", "attn_norm"), ("blocks", "mlp_norm"), ("mlstm",), ("slstm",)}
+
+
+def _leaves(tree: Mapping, path=()):
+    """``(path, leaf)`` of a nested dict, in insertion order."""
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _leaves(sub, path + (key,))
+        else:
+            yield path + (key,), sub
+
+
+def _stacked_depth(path) -> int:
+    return sum(path[:i] in _STACKED for i in range(1, len(path) + 1))
+
+
+def _port_name(path, index) -> str:
+    """The state-dict name of one slice of a stacked leaf: each stacking
+    key of ``path`` followed by its index (``blocks.3.mamba.2.in_proj``)."""
+    out, it = [], iter(index)
+    for i, key in enumerate(path):
+        out.append(key)
+        if path[: i + 1] in _STACKED:
+            out.append(str(next(it)))
+    return ".".join(out)
+
+
 def params_from_reference(tree: Mapping, device=None) -> Dict[str, torch.Tensor]:
     """The JAX package's LM parameter pytree (leaves as numpy arrays) as the
     port's parameters by state-dict name: top-level leaves keep their name,
-    and each stacked ``(L, ...)`` leaf of ``tree["layers"]`` splits into
-    ``layers.<i>.<leaf>``. Bytes and dtypes are kept."""
+    and each stacked leaf splits along its stacked axes into one tensor per
+    layer, or per block and slot (``layers.<i>.<leaf>``,
+    ``blocks.<b>.mamba.<slot>.<leaf>``, ``blocks.<b>.attn_norm.<i>``,
+    ``mlstm.<i>.<leaf>``; see ``models.lm``). A stack of length 0 gives no
+    name. Bytes and dtypes are kept."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
-    for name, leaf in tree.items():
-        if name == "layers":
-            for sub, stacked in leaf.items():
-                t = _host_tensor(stacked)
-                out.update({f"layers.{i}.{sub}": t[i].to(dev) for i in range(t.shape[0])})
-        else:
-            out[name] = _host_tensor(leaf).to(dev)
+    for path, leaf in _leaves(tree):
+        t = _host_tensor(leaf)
+        depth = _stacked_depth(path)
+        for index in np.ndindex(*t.shape[:depth]):
+            out[_port_name(path, index)] = t[index].to(dev)
     return out
 
 
@@ -152,23 +185,39 @@ def opt_state_from_reference(state: Mapping, device=None) -> Dict:
 
 def tree_to_reference(named: Mapping[str, torch.Tensor]) -> Dict:
     """The inverse of ``params_from_reference``, for parameters, gradients
-    or moments: port tensors by state-dict name as the JAX package's tree of
-    numpy arrays, ``layers.<i>.<leaf>`` stacked into ``layers[leaf]`` of
-    shape ``(L, ...)``. bfloat16 widens to float32 (exactly: numpy has no
-    bfloat16 of its own); other dtypes are kept."""
+    or moments: port tensors by state-dict name as the JAX package's nested
+    tree of numpy arrays, each stacked leaf's slices stacked again along
+    its stacked axes (``layers.<i>.<leaf>`` into ``layers[leaf]`` of shape
+    ``(L, ...)``). A stack of length 0 has no name, so its leaves are
+    absent. bfloat16 widens to float32 (exactly: numpy has no bfloat16 of
+    its own); other dtypes are kept."""
 
     def host(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    out: Dict = {}
-    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    slices: Dict[tuple, Dict[tuple, np.ndarray]] = {}
     for name, t in named.items():
-        if name.startswith("layers."):
-            _, i, leaf = name.split(".")
-            layers.setdefault(leaf, {})[int(i)] = host(t)
-        else:
-            out[name] = host(t)
-    if layers:
-        out["layers"] = {leaf: np.stack([per[i] for i in range(len(per))]) for leaf, per in layers.items()}
+        segs = name.split(".")
+        path = tuple(s for s in segs if not s.isdigit())
+        index = tuple(int(s) for s in segs if s.isdigit())
+        slices.setdefault(path, {})[index] = host(t)
+    out: Dict = {}
+    for path, per in slices.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _restack(per) if _stacked_depth(path) else per[()]
+    return out
+
+
+def _restack(per: Dict[tuple, np.ndarray]) -> np.ndarray:
+    """Slices by index tuple as one array, the index axes leading."""
+    shape = tuple(max(ix) + 1 for ix in zip(*per))
+    if len(per) != math.prod(shape):
+        raise ValueError(f"{len(per)} slices for a stack of {shape}")
+    first = next(iter(per.values()))
+    out = np.empty(shape + first.shape, first.dtype)
+    for index, a in per.items():
+        out[index] = a
     return out

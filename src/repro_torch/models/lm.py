@@ -7,11 +7,21 @@
     logits, cache = model.decode_step(cache, token)
 
 ``Model`` is an ``nn.Module`` that holds its parameters under the JAX
-package's leaf names: ``embed``, ``layers.<i>.<leaf>`` (one
-``nn.ParameterDict`` per layer in an ``nn.ModuleList``), ``final_norm``
-and ``lm_head``. The families ``dense``, ``moe`` and ``vlm`` run; the
-others (``hybrid``, ``ssm``, ``audio``) are not ported yet and raise. The
-dry-run's ``input_specs`` and ``param_shapes`` wait for ``launch/``.
+package's leaf names, each stacked leaf of the reference split into one
+parameter per layer (or per block and slot), the indices in its path:
+
+* transformer (``dense``, ``moe``, ``vlm``): ``layers.<i>.<leaf>``;
+* ``hybrid`` (jamba): ``blocks.<b>.attn.<leaf>``,
+  ``blocks.<b>.{mamba,dense,moe}.<slot>.<leaf>`` and
+  ``blocks.<b>.{attn_norm,mlp_norm}.<i>``;
+* ``ssm`` (xlstm): ``mlstm.<i>.<leaf>`` and ``slstm.<i>.<leaf>``;
+
+beside the top-level ``embed``, ``final_norm`` and ``lm_head``. A run of
+integer path segments is an ``nn.ModuleList`` (or ``nn.ParameterList``),
+named segments an ``nn.ModuleDict`` (or ``nn.ParameterDict``), so the
+state-dict names are these names. The ``audio`` family is not ported yet
+and raises. The dry-run's ``input_specs`` and ``param_shapes`` wait for
+``launch/``.
 """
 from __future__ import annotations
 
@@ -22,13 +32,33 @@ from torch import nn
 
 from ..configs.base import ArchConfig
 from ..core.types import resolve_device, to_device
-from . import transformer
+from . import hybrid, transformer, xlstm
 
-_FAMILY_MODS = {"dense": transformer, "moe": transformer, "vlm": transformer}
+_FAMILY_MODS = {"dense": transformer, "moe": transformer, "vlm": transformer, "hybrid": hybrid,
+                "ssm": xlstm}
 
 
 def _parameter(t: torch.Tensor, device: torch.device) -> nn.Parameter:
     return nn.Parameter(t.to(device), requires_grad=False)
+
+
+def _container(node: Dict, device: torch.device, path: str) -> nn.Module:
+    """The parameters under one path prefix (a dict of name segments, with
+    tensors at the leaves) as nested containers: integer segments 0..n-1 a
+    list, named segments a dict."""
+    leaves = [isinstance(v, torch.Tensor) for v in node.values()]
+    if any(leaves) and not all(leaves):
+        raise ValueError(f"params under {path!r} mix tensors and sub-paths")
+    if all(k.isdigit() for k in node):
+        if sorted(map(int, node)) != list(range(len(node))):
+            raise ValueError(f"params under {path!r} number {sorted(map(int, node))}, not 0..{len(node) - 1}")
+        items = [node[str(i)] for i in range(len(node))]
+        if all(leaves):
+            return nn.ParameterList(_parameter(t, device) for t in items)
+        return nn.ModuleList(_container(v, device, f"{path}.{i}") for i, v in enumerate(items))
+    if all(leaves):
+        return nn.ParameterDict({k: _parameter(t, device) for k, t in node.items()})
+    return nn.ModuleDict({k: _container(v, device, f"{path}.{k}") for k, v in node.items()})
 
 
 class Model(nn.Module):
@@ -53,16 +83,26 @@ class Model(nn.Module):
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.mod.init_params(cfg, gen)
-        layers = [{} for _ in range(cfg.n_layers)]
+        tree: Dict = {}
         for name, t in params.items():
-            if name.startswith("layers."):
-                _, i, leaf = name.split(".")
-                layers[int(i)][leaf] = _parameter(t, self.device)
+            *path, leaf = name.split(".")
+            node = tree
+            for seg in path:
+                node = node.setdefault(seg, {})
+            node[leaf] = t
+        for name, sub in tree.items():
+            if isinstance(sub, torch.Tensor):
+                self.register_parameter(name, _parameter(sub, self.device))
             else:
-                self.register_parameter(name, _parameter(t, self.device))
-        if not all(layers):
-            raise ValueError(f"params hold {sum(map(bool, layers))} of {cfg.n_layers} layers")
-        self.layers = nn.ModuleList(nn.ParameterDict(lp) for lp in layers)
+                self.add_module(name, _container(sub, self.device, name))
+        # a stack of length 0 (the reduced jamba's super-blocks) has no
+        # parameters, so no name makes it: an empty list stands for it
+        for name, count in self.mod.stacks(cfg).items():
+            have = len(getattr(self, name)) if hasattr(self, name) else 0
+            if have != count:
+                raise ValueError(f"params hold {have} of {count} {name}")
+            if not count:
+                self.add_module(name, nn.ModuleList())
 
     @property
     def mod(self):

@@ -32,6 +32,11 @@ from . import moe as moe_mod
 from .layers import _dense, dtype_of, init_attn, init_mlp, next_token_loss, rmsnorm, rope
 
 
+def stacks(cfg: ArchConfig) -> Dict[str, int]:
+    """The model's stacked containers and their lengths."""
+    return {"layers": cfg.n_layers}
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> Dict[str, torch.Tensor]:
     """Random parameters on the generator's device, by state-dict name
     (``embed``, ``layers.<i>.<leaf>``, ``final_norm``, ``lm_head``)."""

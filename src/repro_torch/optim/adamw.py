@@ -3,10 +3,11 @@ state dtype.
 
 The port of the JAX package's ``repro.optim.adamw`` on one device, as plain
 functions on dicts of tensors keyed by the model's state-dict names
-(``embed``, ``layers.<i>.<leaf>``, ``final_norm``, ``lm_head``). The state
-is ``{"m", "v", "step"}``: ``m`` and ``v`` in ``state_dtype`` (bfloat16 for
-the 398B jamba config, with float32 step math), ``step`` an int32 scalar
-on the parameters' device.
+(``embed``, ``layers.<i>.<leaf>``, ``final_norm``, ``lm_head``; the
+recurrent families' in ``models.lm``). The state is ``{"m", "v",
+"step"}``: ``m`` and ``v`` in ``state_dtype`` (bfloat16 for the 398B
+jamba config, with float32 step math), ``step`` an int32 scalar on the
+parameters' device.
 
 ``apply_updates`` writes the new parameters and moments in place under
 ``torch.no_grad()``, the port's form of the reference's donated buffers.
@@ -68,14 +69,14 @@ def init_state(cfg: OptConfig, params: Mapping[str, torch.Tensor]) -> Dict:
 
 
 def _tree_order(names) -> list:
-    """``names`` in the reference's tree order: its top-level keys sorted,
-    ``layers`` one stacked leaf per sub-name (sorted), each over its layers."""
+    """``names`` in the reference's tree order, as ``jax.tree.flatten``
+    orders a nested dict: its keys sorted at every level, a stacked leaf's
+    slices (``layers.<i>.<leaf>``, ``blocks.<b>.mamba.<slot>.<leaf>``)
+    together in index order."""
 
     def key(name: str):
-        if name.startswith("layers."):
-            _, i, leaf = name.split(".")
-            return ("layers", leaf, int(i))
-        return (name, "", 0)
+        segs = name.split(".")
+        return (tuple(s for s in segs if not s.isdigit()), tuple(int(s) for s in segs if s.isdigit()))
 
     return sorted(names, key=key)
 

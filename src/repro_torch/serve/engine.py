@@ -13,7 +13,9 @@ decode modes:
   (``models.moe._grouped_gemm_moe``'s ``lanes``). When a sequence retires
   (EOS or its token budget), its slot is refilled from the admission queue
   between steps: the new request is prefilled alone and its cache written
-  into the retired slot's lane while the other slots keep decoding.
+  into the retired slot's lane while the other slots keep decoding. The
+  lanes of any family's cache stack leaf by leaf (the transformer's K/V,
+  the hybrid's Mamba state beside them, the xLSTM's recurrent state).
 
 Admission ordering goes through the port's sort *service*
 (:meth:`ServeEngine.admission_order` → :class:`repro_torch.service.SortService`):
@@ -55,6 +57,15 @@ def _mesh_sort_p(mesh) -> int:
         return 8
     nd = int(np.asarray(mesh.devices).size)
     return max(1, 1 << (nd.bit_length() - 1))
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and tuples of one structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 @dataclasses.dataclass
@@ -151,6 +162,15 @@ class ServeEngine:
         return torch.stack(outs, dim=1)
 
     # ------------------------------------------------ continuous batching
+    def _lane_axes(self):
+        """The lane (batch) axis of each cache leaf, found where the shapes
+        of a 1-lane and a 2-lane cache differ: the transformer's K/V on
+        axis 1, the hybrid's Mamba state on axis 2, the xLSTM state on
+        axis 1; ``None`` for ``pos``, whose lanes stack on a new axis 0."""
+        one, two = self.model.cache_shapes(1, 1), self.model.cache_shapes(2, 1)
+        return _tree_map(lambda a, b: next((i for i, (m, n) in enumerate(zip(a.shape, b.shape)) if m != n), None),
+                         one, two)
+
     def _prefill_one(self, tokens: np.ndarray, cache_len: int):
         """Prefill one request (batch 1)."""
         return self.model.prefill({"tokens": torch.as_tensor(tokens)[None]}, cache_len=cache_len)
@@ -267,11 +287,9 @@ class ServeEngine:
         if not slot_req:  # every request had a zero budget
             return [np.asarray(t, np.int32) for t in outs]
         n_slots = len(slot_req)
-        lanes = {
-            "k": torch.cat([c["k"] for c in caches], dim=1),
-            "v": torch.cat([c["v"] for c in caches], dim=1),
-            "pos": torch.stack([c["pos"] for c in caches]),
-        }
+        axes = self._lane_axes()
+        lanes = _tree_map(lambda ax, *leaves: torch.stack(leaves) if ax is None else torch.cat(leaves, dim=ax),
+                          axes, *caches)
         del caches
         tok = torch.stack(toks)  # (slots,)
         prefetch_admission()  # first refill's prefill rides the decode loop
@@ -280,9 +298,8 @@ class ServeEngine:
             nxt, cache_s, tok_s = adm
             slot_req[s] = nxt
             self._refills.inc()
-            lanes["k"][:, s] = cache_s["k"][:, 0]
-            lanes["v"][:, s] = cache_s["v"][:, 0]
-            lanes["pos"][s] = cache_s["pos"]
+            _tree_map(lambda ax, full, one: (full[s] if ax is None else full.select(ax, s)).copy_(
+                one if ax is None else one.select(ax, 0)), axes, lanes, cache_s)
             tok[s] = tok_s
             return int(tok_s)
 

@@ -136,9 +136,9 @@ def test_parameters_carry_the_reference_leaf_names():
         np.testing.assert_array_equal(to_numpy(model.layers[1][leaf]), to_numpy(np.asarray(stacked)[1]))
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["whisper-tiny"])
 def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 3"):
         Model(get_arch(arch).reduced(), device="cpu")
 
 
