@@ -190,16 +190,42 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      AdamW steps). It launches no K1–K4; the count is
                      printed. Every time stands beside the card's
                      ``nvidia-smi`` name and power limit.
+21. ``audio_path`` — whisper-tiny at its published width and depth (4
+                     encoder and 4 decoder layers, d_model 384, 6 heads,
+                     d_ff 1536, vocab 51 865, 1500 frames; seeded weights):
+                     on its float32 copy a prefill of 64 tokens and 8
+                     decode steps against the prefills of 65 .. 72 on one
+                     set of frames (1e-4 of the largest logit) and
+                     ``generate()`` of 8 requests as one batch against each
+                     alone; in bfloat16 ``generate()`` of 32 requests of 64
+                     tokens, each with its own frames, 32 new tokens (wall,
+                     tokens/s, a profiled run's busy and idle share), the
+                     prefill at prefill_32k's 32 x 32 768 tokens, the
+                     decode step at decode_32k's 128 lanes on a 32 768-
+                     position cache (ms, aten ops), 15 memorization steps,
+                     one profiled and one counted train step and the
+                     ``launch.train`` driver's 4 steps at 14 x 4096 tokens
+                     (12 or 8 if 14 do not fit); the reduced whisper on the card
+                     against the CPU (loss, every gradient leaf, three
+                     AdamW steps, ``generate()`` streams). Each timed train
+                     step, prefill and decode step here, and the train
+                     steps of phases 19 and 20, stands beside the dry-run's
+                     counted roofline terms at its own shape
+                     (``launch.dryrun.lower_cell`` on ``meta`` tensors:
+                     FLOPs and bytes of the matrix products, their seconds
+                     at the H100 SXM's published peaks) and the wall over
+                     the larger term. It launches no K1–K4; the count is
+                     printed.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19 and 20, each counted from zero just
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20 and 21, each counted from zero just
 before the phase's checked runs and read just after; the int64 routes of K2
 and K3 and K3's float route are listed and counted on their own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17, 18, 19, 20) runs the build and those phases only,
+phases 11, 13, 14, 16, 17, 18, 19, 20, 21) runs the build and those phases only,
 and prints no result line.
 """
 from __future__ import annotations
@@ -2420,9 +2446,6 @@ def phase_lm_path(torch, core, build):
 #: train_4k's sequence length; the global batch one card takes (train_4k's
 #: is 256)
 TRAIN_SEQ, TRAIN_BATCH = 4096, 4
-#: dense bfloat16 tensor-core peak of one H100 SXM (NVIDIA's data sheet,
-#: without sparsity, at the 700 W power limit)
-BF16_PEAK_FLOPS = 989e12
 #: one train step, card against CPU, reduced models in float32: gradients
 #: (of each leaf's largest magnitude) and three steps' losses and norms
 #: (relative)
@@ -2431,6 +2454,35 @@ TRAIN_GRAD_TOL, TRAIN_STEP_TOL = 1e-4, 1e-5
 #: and first moments; the two differ only in float32 rounding (the norm's
 #: order of summation, the clip scale's quotient)
 MB_TOL = 1e-5
+
+
+def roofline_beside(cfg, shape, wall_s, phase):
+    """The dry-run's counted terms of ``shape``'s step (``lower_cell`` on
+    ``meta`` tensors: the run's own batch and length, nothing computed)
+    beside the run's measured wall, and the wall over the larger term. The
+    terms are bounds at the H100 SXM's published peaks
+    (``roofline.analysis.PEAK_FLOPS``, ``HBM_BW``). A train step's FLOPs
+    share of the peak is given twice: by ``model_flops`` (6 · N_active ·
+    tokens) and by the counted FLOPs (remat's recompute and the
+    attention's quadratic work included)."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.roofline import PEAK_FLOPS
+
+    info = lower_cell(cfg, shape)
+    if info["status"] != "ok":
+        fail(phase, f"{cfg.name} {shape}: the dry-run's trace: {info}")
+    bound = max(info["t_compute_s"], info["t_memory_s"])
+    out = dict(batch=shape.global_batch, seq=shape.seq_len, kind=shape.kind, wall_s=wall_s,
+               dot_flops_per_dev=info["dot_flops_per_dev"], dot_bytes_per_dev=info["dot_bytes_per_dev"],
+               t_compute_s=info["t_compute_s"], t_compute_model_s=info["t_compute_model_s"],
+               t_memory_s=info["t_memory_s"], dominant=info["dominant"],
+               useful_flops_ratio=info.get("useful_flops_ratio"), mem_args_gb=info["mem_args_gb"],
+               counted_aten_ops=info["aten_ops"], trace_s=info["trace_s"], wall_over_bound=wall_s / bound,
+               peak_flops=PEAK_FLOPS, terms_source="H100 SXM published peaks (repro_torch.roofline)")
+    if shape.kind == "train":
+        out["model_flops_share"] = info["model_flops_total"] / wall_s / PEAK_FLOPS
+        out["counted_flops_share"] = info["dot_flops_per_dev"] / wall_s / PEAK_FLOPS
+    return out
 
 
 def train_grads(torch, model, batch):
@@ -2509,10 +2561,10 @@ def driver_steps(torch, launch_train, cfg, batch, seq, phase):
     return losses, walls
 
 
-def three_steps(torch, models, vocab, oc, init_all, make_train_step):
+def three_steps(torch, models, vocab, oc, init_all, make_train_step, extras=({}, {}, {})):
     """Three AdamW steps of each model from its own weights on the same
-    CPU-made batches (4 x 32 tokens): the (loss, gradient norm) of every
-    step, one list per model."""
+    CPU-made batches (4 x 32 tokens, and ``extras[i]`` beside step i's):
+    the (loss, gradient norm) of every step, one list per model."""
     import numpy as np
 
     runs = []
@@ -2521,7 +2573,7 @@ def three_steps(torch, models, vocab, oc, init_all, make_train_step):
         stp, got = make_train_step(mdl, oc), []
         for i in range(3):
             t3 = torch.from_numpy(np.random.default_rng(100 + i).integers(0, vocab, (4, 32)).astype(np.int32))
-            params, opt, m = stp(params, opt, {"tokens": t3, "labels": torch.roll(t3, -1, 1)})
+            params, opt, m = stp(params, opt, {"tokens": t3, "labels": torch.roll(t3, -1, 1), **extras[i]})
             got.append((float(m["loss"]), float(m["grad_norm"])))
         runs.append(got)
     return runs
@@ -2544,6 +2596,7 @@ def phase_train_path(torch, core, build):
     from repro_torch.launch import train as launch_train
     from repro_torch.models import Model
     from repro_torch.optim import OptConfig
+    from repro_torch.roofline import model_flops
     from repro_torch.train import checkpoint, init_all, make_train_step
 
     build.reset_counts()
@@ -2608,12 +2661,10 @@ def phase_train_path(torch, core, build):
     fresh()
     losses, walls = driver_steps(torch, launch_train, cfg, TRAIN_BATCH, TRAIN_SEQ, "train_path")
     wall = statistics.median(walls[1:])
-    flops = 6 * cfg.active_param_count() * tokens_a_step
     out["train"] = dict(steps=4, losses=losses, step_walls_s=walls, first_step_s=walls[0], step_wall_s=wall,
                         tokens_per_step=tokens_a_step, tokens_per_s=tokens_a_step / wall,
-                        model_flops_per_step=flops, model_flops_share=flops / wall / BF16_PEAK_FLOPS,
-                        peak_flops=BF16_PEAK_FLOPS,
-                        peak_flops_source="H100 SXM dense bf16, NVIDIA data sheet",
+                        model_flops_per_step=model_flops(cfg, shape),
+                        roofline=roofline_beside(cfg, shape, wall, "train_path"),
                         peak_mem_gib=peak_gib(), profiled_step_s=profiled_s, device_busy_s=busy_s,
                         idle_share_profiled=idle_share(busy_s, profiled_s), aten_ops_a_step=n_ops,
                         top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top])
@@ -2783,17 +2834,18 @@ HYB_EXPERTS_BF16, HYB_EXPERTS_F32 = 8, 2
 CARRY_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 
 
-def carried_error(torch, model, tokens, s):
+def carried_error(torch, model, tokens, s, extras=None):
     """Prefill ``tokens[:, :s]``, then decode the rest one token at a time:
     each step's logits against the last logits of a teacher-forced prefill
-    of the same prefix. Returns (max |difference| / max |logits|, max
-    |logits|) over the steps."""
-    n = tokens.shape[1]
-    cache, _ = model.prefill({"tokens": tokens[:, :s]}, cache_len=n)
+    of the same prefix (``extras``, whisper's frames, fed to every
+    prefill). Returns (max |difference| / max |logits|, max |logits|) over
+    the steps."""
+    n, extras = tokens.shape[1], extras or {}
+    cache, _ = model.prefill({"tokens": tokens[:, :s], **extras}, cache_len=n)
     err = scale = 0.0
     for j in range(s, n):
         dec, cache = model.decode_step(cache, tokens[:, j])
-        _, full = model.prefill({"tokens": tokens[:, :j + 1]}, cache_len=n)
+        _, full = model.prefill({"tokens": tokens[:, :j + 1], **extras}, cache_len=n)
         scale = max(scale, full.float().abs().max().item())
         err = max(err, (dec.float() - full.float()).abs().max().item())
     return err / scale, scale
@@ -2833,6 +2885,7 @@ def phase_recurrent_path(torch, core, build):
     from repro_torch.launch import train as launch_train
     from repro_torch.models import Model
     from repro_torch.optim import OptConfig
+    from repro_torch.roofline import PEAK_FLOPS, model_flops
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.train import init_all, make_train_step
 
@@ -2937,22 +2990,30 @@ def phase_recurrent_path(torch, core, build):
         losses.append(float(m["loss"]))
     if not all(map(math.isfinite, losses)) or not losses[-1] < 0.8 * losses[0]:
         fail("recurrent_path", f"{REC_ARCH} memorization: losses {losses}")
-    data = synthetic_batch(cfg, ShapeConfig("recurrent_path", REC_PROFILE_SEQ, REC_PROFILE_BATCH, "train"), 1000)
+    pshape = ShapeConfig("recurrent_path", REC_PROFILE_SEQ, REC_PROFILE_BATCH, "train")
+    data = synthetic_batch(cfg, pshape, 1000)
     params, opt, profiled_s, split, n_ops = profiled_step(torch, step, params, opt, data)
     busy_ms = sum(ms for ms, _ in split.values())
     top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:8]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, opt, m = step(params, opt, data)
+    float(m["loss"])
+    counted = roofline_beside(cfg, pshape, time.perf_counter() - t, "recurrent_path")
     del model, params, opt, step, m, split
     lap("xlstm_memorize_profile")
     fresh()
     dlosses, dwalls = driver_steps(torch, launch_train, cfg, REC_TRAIN_BATCH, REC_TRAIN_SEQ, "recurrent_path")
     tokens_a_step = REC_TRAIN_BATCH * REC_TRAIN_SEQ
     wall = statistics.median(dwalls[1:])
-    flops = 6 * cfg.param_count() * tokens_a_step
+    dshape = ShapeConfig("recurrent_path", REC_TRAIN_SEQ, REC_TRAIN_BATCH, "train")
+    flops = model_flops(cfg, dshape)
     out["xlstm"]["train"] = dict(
         batch=REC_TRAIN_BATCH, seq=REC_TRAIN_SEQ, memorize=dict(tokens=[2, 32], first_loss=losses[0],
                                                                  last_loss=losses[-1], ratio=losses[-1] / losses[0]),
         steps=4, losses=dlosses, step_walls_s=dwalls, step_wall_s=wall, tokens_per_s=tokens_a_step / wall,
-        model_flops_per_step=flops, model_flops_share=flops / wall / BF16_PEAK_FLOPS, peak_flops=BF16_PEAK_FLOPS,
+        model_flops_per_step=flops, model_flops_share=flops / wall / PEAK_FLOPS, peak_flops=PEAK_FLOPS,
+        roofline_at_profiled_tokens=counted,
         profiled_tokens=[REC_PROFILE_BATCH, REC_PROFILE_SEQ], profiled_step_s=profiled_s,
         device_busy_s=busy_ms / 1e3, idle_share=idle_share(busy_ms, profiled_s * 1e3), aten_ops_a_step=n_ops,
         top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top], peak_mem_gib=peak_gib())
@@ -3048,6 +3109,304 @@ def phase_recurrent_path(torch, core, build):
     return launches
 
 
+# ------------------------------------------------------------ the audio family
+AUDIO_ARCH = "whisper-tiny"
+#: the serving mix: requests of 64-token prompts, each with its own 1500
+#: frames, 32 greedy tokens each, generated as one batch (the reference
+#: serves whisper only through ``generate`` with its frames)
+AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_NEW = 32, 64, 32
+#: prefill_32k's and decode_32k's shapes: 32 rows of 32 768 tokens; 128
+#: lanes on a 32 768-position cache (K and V 25.8 GB in bfloat16)
+AUDIO_PREFILL = (32, 32768)
+AUDIO_DECODE = (128, 32768)
+#: the driver's rows at train_4k's 4096 tokens (train_4k's global batch of
+#: 256 cut to one card), the first that fits: on an NVIDIA H100 80GB HBM3
+#: at 700 W, 8 rows peaked at 38.6 GiB (~4.7 GB a row, most of it the
+#: float32 loss over 51 865-wide logits), 14 at 66.5 GiB, and 16 did not fit
+AUDIO_TRAIN_SEQ, AUDIO_TRAIN_BATCHES = 4096, (14, 12, 8)
+#: the memorization batch: rows x tokens 0 .. n-1, on one set of frames
+AUDIO_MEMORIZE = (4, 1024)
+
+
+def audio_frames(torch, gen, rows, cfg, dtype):
+    """``rows`` sets of the encoder's input, (rows, 1500, d_model), drawn on the card."""
+    return torch.randn((rows, cfg.enc_positions, cfg.d_model), generator=gen, device="cuda").to(dtype)
+
+
+def timed_generate(torch, eng, prompts, frames):
+    """One ``generate()`` on the host clock to a sync: (seconds, streams)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    streams = eng.generate(prompts, extras={"frames": frames})
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, streams
+
+
+def phase_audio_path(torch, core, build):
+    """whisper-tiny at full width on the card (4 + 4 layers, d_model 384,
+    vocab 51 865, 1500 frames; seeded weights): on its float32 copy the
+    carried self-attention cache against prefills and a batch of
+    ``generate()`` streams against each request alone; in bfloat16
+    ``generate()`` of 32 requests with their frames, the prefill at
+    prefill_32k's shape and the decode step at decode_32k's, 15
+    memorization steps, one profiled and one counted train step, the
+    ``launch.train`` driver at 4096 tokens; each timed run beside the
+    dry-run's counted roofline terms at its own shape; the reduced whisper
+    on the card against the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.train import init_all, make_train_step
+
+    build.reset_counts()
+    t_phase = time.perf_counter()
+    out = {"seconds": {}, "device": nvidia_smi()}
+
+    def lap(part):
+        out["seconds"][part] = time.perf_counter() - t_phase - sum(out["seconds"].values())
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    # 1. the float32 copy: the carried self-attention cache against prefills
+    # of the same prefix on one set of frames, and generate() of a batch
+    # against each request alone
+    cfg = get_arch(AUDIO_ARCH)
+    fresh()
+    model = Model(cfg, seed=22)
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), params={k: v.float() for k, v in model.state_dict().items()})
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    toks = torch.randint(0, cfg.vocab, (1, 72), generator=gen, device="cuda", dtype=torch.int32)
+    f1 = audio_frames(torch, gen, 1, cfg, torch.float32)
+    err32, scale32 = carried_error(torch, m32, toks, 64, {"frames": f1})
+    err16, scale16 = carried_error(torch, model, toks, 64, {"frames": f1.to(torch.bfloat16)})  # printed, not held
+    if err32 > CARRY_TOL["float32"]:
+        fail("audio_path", f"{AUDIO_ARCH}: decode after a prefill of 64 against prefills of 65..72: float32 "
+                           f"{err32} > {CARRY_TOL['float32']}")
+    eng32 = ServeEngine(m32, ServeConfig(max_new_tokens=16, temperature=0.0))
+    p8 = torch.randint(0, cfg.vocab, (8, AUDIO_PROMPT), generator=gen, device="cuda", dtype=torch.int32)
+    f8 = audio_frames(torch, gen, 8, cfg, torch.float32)
+    batch8 = eng32.generate(p8, extras={"frames": f8})
+    alone = [eng32.generate(p8[i:i + 1], extras={"frames": f8[i:i + 1]})[0] for i in range(8)]
+    differ = [i for i in range(8) if not torch.equal(batch8[i], alone[i])]
+    if differ:
+        fail("audio_path", f"{AUDIO_ARCH} float32: generate() of requests {differ} in a batch differs from alone")
+    out["whisper"] = dict(arch=cfg.name, enc_layers=cfg.enc_layers, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                          n_heads=cfg.n_heads, d_ff=cfg.d_ff, vocab=cfg.vocab, frames=cfg.enc_positions,
+                          params=sum(p.numel() for p in model.parameters()), cfg_param_count=cfg.param_count(),
+                          carried=dict(prefill=64, decode_steps=8, float32_rel_err=err32, bfloat16_rel_err=err16,
+                                       logits_max=scale32, bf16_logits_max=scale16, tol=CARRY_TOL["float32"]),
+                          float32_batch_equals_alone=8)
+    del m32, eng32
+    lap("float32_checks")
+
+    # 2. bfloat16 serving: generate() of 32 requests, each with its frames
+    fresh()
+    eng = ServeEngine(model, ServeConfig(max_new_tokens=AUDIO_NEW, temperature=0.0))
+    prompts = torch.randint(0, cfg.vocab, (AUDIO_REQUESTS, AUDIO_PROMPT), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    frames = audio_frames(torch, gen, AUDIO_REQUESTS, cfg, torch.bfloat16)
+    first_s, streams = timed_generate(torch, eng, prompts, frames)
+    if tuple(streams.shape) != (AUDIO_REQUESTS, AUDIO_NEW) or not bool(((streams >= 0) & (streams < cfg.vocab)).all()):
+        fail("audio_path", f"generate(): streams of shape {tuple(streams.shape)} or ids outside the vocabulary")
+    walls = []
+    for _ in range(3):
+        wall, again = timed_generate(torch, eng, prompts, frames)
+        walls.append(wall)
+        if not torch.equal(again, streams):
+            fail("audio_path", "a warm generate() gave other greedy streams")
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    profiled_s, _ = timed_generate(torch, eng, prompts, frames)
+    prof.stop()
+    split = device_split(torch, prof)
+    busy_ms = sum(ms for ms, _ in split.values())
+    top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:8]
+    wall = statistics.median(walls)
+    generated = AUDIO_REQUESTS * AUDIO_NEW
+    out["whisper"]["generate"] = dict(
+        requests=AUDIO_REQUESTS, prompt_tokens=AUDIO_PROMPT, frames=cfg.enc_positions, max_new_tokens=AUDIO_NEW,
+        first_s=first_s, walls_s=walls, wall_s=wall, tokens_per_s=generated / wall, profiled_wall_s=profiled_s,
+        device_busy_s=busy_ms / 1e3, idle_share=idle_share(busy_ms, profiled_s * 1e3),
+        top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top], peak_mem_gib=peak_gib())
+    del eng, prof, split
+    lap("generate")
+
+    # 3. the prefill at prefill_32k's shape: 32 rows of 32 768 tokens
+    fresh()
+    rows, n = AUDIO_PREFILL
+    ptoks = torch.randint(0, cfg.vocab, (rows, n), generator=gen, device="cuda", dtype=torch.int32)
+    pframes = audio_frames(torch, gen, rows, cfg, torch.bfloat16)
+    pre_s = []
+    for _ in range(2):  # the first warms the allocator
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cache, logits = model.prefill({"tokens": ptoks, "frames": pframes}, cache_len=n)
+        torch.cuda.synchronize()
+        pre_s.append(time.perf_counter() - t)
+        if not bool(torch.isfinite(logits).all()):
+            fail("audio_path", f"prefill of {rows} x {n}: logits not finite")
+        del cache, logits
+    out["whisper"]["prefill_32k"] = dict(rows=rows, tokens=n, walls_s=pre_s, peak_mem_gib=peak_gib(),
+                                         roofline=roofline_beside(cfg, ShapeConfig("prefill_32k", n, rows, "prefill"),
+                                                                  pre_s[-1], "audio_path"))
+    del ptoks, pframes
+    lap("prefill_32k")
+
+    # 4. the decode step at decode_32k's shape: 128 lanes on a 32 768-position
+    # cache from a 64-token prefill; the step reads the whole cache, masked
+    fresh()
+    lanes, n = AUDIO_DECODE
+    dtoks = torch.randint(0, cfg.vocab, (lanes, 64), generator=gen, device="cuda", dtype=torch.int32)
+    cache, logits = model.prefill({"tokens": dtoks, "frames": audio_frames(torch, gen, lanes, cfg, torch.bfloat16)},
+                                  cache_len=n)
+    tok = logits.argmax(-1).int()
+    for _ in range(3):
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits.argmax(-1).int()
+    steps = 16
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = model.decode_step(cache, tok)
+        tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / steps
+    ops = dispatch_count()
+    with ops:
+        model.decode_step(cache, tok)
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t = time.perf_counter()
+    model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    profiled_s = time.perf_counter() - t
+    prof.stop()
+    split = device_split(torch, prof)
+    busy_ms = sum(ms for ms, _ in split.values())
+    top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:6]
+    if not bool(torch.isfinite(logits).all()) or int(cache["pos"]) != 63 + 3 + steps:
+        fail("audio_path", f"decode at {lanes} lanes: logits not finite or pos {int(cache['pos'])}")
+    cache_gb = sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v", "xk", "xv")) / 1e9
+    out["whisper"]["decode_32k"] = dict(lanes=lanes, cache_len=n, step_ms=step_s * 1e3, aten_ops=ops.n,
+                                        cache_gb=cache_gb, peak_mem_gib=peak_gib(), profiled_step_s=profiled_s,
+                                        device_busy_s=busy_ms / 1e3,
+                                        idle_share=idle_share(busy_ms, profiled_s * 1e3),
+                                        top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top],
+                                        roofline=roofline_beside(cfg, ShapeConfig("decode_32k", n, lanes, "decode"),
+                                                                 step_s, "audio_path"))
+    del cache, logits, dtoks, prof, split
+    lap("decode_32k")
+
+    # 5. bfloat16 training with remat: 15 memorization steps at 4 x 1024
+    # tokens on one set of frames, one profiled step and one counted at the
+    # driver's shape, then the driver's own 4 steps
+    fresh()
+    if not cfg.remat:
+        fail("audio_path", f"{cfg.name} does not rematerialize")
+    oc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=30)
+    params, opt = init_all(model, oc)
+    step = make_train_step(model, oc)
+    rows, n = AUDIO_MEMORIZE
+    tokens = torch.arange(n, dtype=torch.int32, device="cuda")[None].repeat(rows, 1)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+             "frames": audio_frames(torch, gen, rows, cfg, torch.bfloat16)}
+    losses = []
+    for _ in range(15):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    if not all(map(math.isfinite, losses)) or not losses[-1] < 0.8 * losses[0]:
+        fail("audio_path", f"{AUDIO_ARCH} memorization: losses {losses}")
+    memorize = dict(tokens=[rows, n], first_loss=losses[0], last_loss=losses[-1], ratio=losses[-1] / losses[0],
+                    criterion="last < 0.8 x first")
+    del batch
+    lap("memorize")
+    train = None
+    for b in AUDIO_TRAIN_BATCHES:
+        fresh()
+        tshape = ShapeConfig("audio_path", AUDIO_TRAIN_SEQ, b, "train")
+        try:
+            data = synthetic_batch(cfg, tshape, 1000)
+            params, opt, profiled_s, split, n_ops = profiled_step(torch, step, params, opt, data)
+            del data
+            dlosses, dwalls = driver_steps(torch, launch_train, cfg, b, AUDIO_TRAIN_SEQ, "audio_path")
+        except torch.cuda.OutOfMemoryError:
+            print(json.dumps({"audio_path": f"{b} rows of {AUDIO_TRAIN_SEQ} do not fit; fewer"}), flush=True)
+            continue
+        busy_ms = sum(ms for ms, _ in split.values())
+        top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:8]
+        wall = statistics.median(dwalls[1:])
+        train = dict(batch=b, seq=AUDIO_TRAIN_SEQ, cut=f"train_4k's global batch 256 -> {b}", memorize=memorize,
+                     steps=4, losses=dlosses, step_walls_s=dwalls, step_wall_s=wall,
+                     tokens_per_s=b * AUDIO_TRAIN_SEQ / wall, profiled_step_s=profiled_s,
+                     device_busy_s=busy_ms / 1e3, idle_share=idle_share(busy_ms, profiled_s * 1e3),
+                     aten_ops_a_step=n_ops, top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top],
+                     peak_mem_gib=peak_gib(), roofline=roofline_beside(cfg, tshape, wall, "audio_path"))
+        break
+    if train is None:
+        fail("audio_path", f"no batch of {AUDIO_TRAIN_BATCHES} rows fits at {AUDIO_TRAIN_SEQ} tokens")
+    out["whisper"]["train"] = train
+    del model, params, opt, step
+    torch.cuda.empty_cache()
+    lap("train")
+
+    # 6. the reduced whisper in float32, card against CPU, inputs made on
+    # the CPU: loss, every gradient leaf, three AdamW steps' losses and
+    # norms, and generate() streams
+    rcfg = dataclasses.replace(get_arch(AUDIO_ARCH).reduced(), dtype="float32")
+    r = np.random.default_rng(33)
+
+    def frames_of(rows):
+        return torch.from_numpy(r.standard_normal((rows, rcfg.enc_positions, rcfg.d_model)).astype(np.float32))
+
+    t2 = torch.from_numpy(r.integers(0, rcfg.vocab, (2, 32)).astype(np.int32))
+    b2 = {"tokens": t2, "labels": torch.roll(t2, -1, 1), "frames": frames_of(2)}
+    cpu = Model(rcfg, device="cpu", seed=7)
+    card = Model(rcfg, device="cuda", params=cpu.state_dict())
+    loss_c, _, g_cpu = train_grads(torch, cpu, b2)
+    loss_g, _, g_card = train_grads(torch, card, b2)
+    gerr = max(leaf_grad_errors(torch, g_card, g_cpu).values())
+    lerr = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    toc = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    runs = three_steps(torch, (cpu, card), rcfg.vocab, toc, init_all, make_train_step,
+                       extras=[{"frames": frames_of(4)} for _ in range(3)])
+    serr = float(np.max(np.abs(np.array(runs[1]) - np.array(runs[0])) / np.abs(np.array(runs[0]))))
+    gp = torch.from_numpy(r.integers(0, rcfg.vocab, (4, 12)).astype(np.int32))
+    gf = frames_of(4)
+    kw = ServeConfig(max_new_tokens=16, temperature=0.0, eos_id=rcfg.vocab)  # no EOS: every budget runs out
+    s_card = ServeEngine(card, kw).generate(gp, extras={"frames": gf}).cpu()
+    s_cpu = ServeEngine(cpu, kw).generate(gp, extras={"frames": gf})
+    if gerr > TRAIN_GRAD_TOL or lerr > TRAIN_STEP_TOL or serr > TRAIN_STEP_TOL or not torch.equal(s_card, s_cpu):
+        fail("audio_path", f"reduced {AUDIO_ARCH}: card against CPU loss {lerr}, gradients {gerr}, steps {serr}, "
+                           f"streams equal {torch.equal(s_card, s_cpu)}")
+    out["card_vs_cpu"] = dict(arch=AUDIO_ARCH, tokens=[2, 32], frames=rcfg.enc_positions, loss_rel_err=lerr,
+                              grad_rel_err=gerr, grad_tol=TRAIN_GRAD_TOL, steps_rel_err=serr,
+                              steps_tol=TRAIN_STEP_TOL, generate_streams_equal=True)
+    lap("card_vs_cpu")
+    torch.cuda.empty_cache()
+    launches = build.counts()
+    emit({"phase": "audio_path", "ok": True, **out, "launches": launches, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def adversarial(p, n_p):
     import numpy as np
 
@@ -3130,7 +3489,8 @@ def main() -> int:
         paths = {"service_path": phase_service_path, "chaos_path": phase_chaos_path,
                  "segmented_path": phase_segmented_path, "planner_path": phase_planner_path,
                  "delta_path": phase_delta_path, "lm_path": phase_lm_path,
-                 "train_path": phase_train_path, "recurrent_path": phase_recurrent_path}
+                 "train_path": phase_train_path, "recurrent_path": phase_recurrent_path,
+                 "audio_path": phase_audio_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -3178,6 +3538,13 @@ def main() -> int:
         launches[name] += recurrent_launches.get(name, 0)
     emit({"phase": "recurrent_launches", "ok": True, "launches": recurrent_launches,
           "none_as_expected": not any(recurrent_launches.values())})
+    # nor does the audio family: its attention is plain torch, and no sort
+    # runs in it, as in the JAX package
+    audio_launches = phase_audio_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += audio_launches.get(name, 0)
+    emit({"phase": "audio_launches", "ok": True, "launches": audio_launches,
+          "none_as_expected": not any(audio_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 

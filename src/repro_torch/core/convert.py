@@ -129,7 +129,7 @@ def _host_tensor(a) -> torch.Tensor:
 #: leading stacked axis per listed prefix of it (jamba's ``blocks.mamba``
 #: leaves are ``(blocks, slot, ...)``: ``blocks`` and ``blocks.mamba``)
 _STACKED = {("layers",), ("blocks",), ("blocks", "mamba"), ("blocks", "dense"), ("blocks", "moe"),
-            ("blocks", "attn_norm"), ("blocks", "mlp_norm"), ("mlstm",), ("slstm",)}
+            ("blocks", "attn_norm"), ("blocks", "mlp_norm"), ("mlstm",), ("slstm",), ("enc",), ("dec",)}
 
 
 def _leaves(tree: Mapping, path=()):
@@ -162,8 +162,8 @@ def params_from_reference(tree: Mapping, device=None) -> Dict[str, torch.Tensor]
     and each stacked leaf splits along its stacked axes into one tensor per
     layer, or per block and slot (``layers.<i>.<leaf>``,
     ``blocks.<b>.mamba.<slot>.<leaf>``, ``blocks.<b>.attn_norm.<i>``,
-    ``mlstm.<i>.<leaf>``; see ``models.lm``). A stack of length 0 gives no
-    name. Bytes and dtypes are kept."""
+    ``mlstm.<i>.<leaf>``, ``enc.<i>.<leaf>``; see ``models.lm``). A stack
+    of length 0 gives no name. Bytes and dtypes are kept."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(tree):

@@ -23,8 +23,18 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 
 # ------------------------------------------------------------------- init
+class MetaGenerator:
+    """The generator of an init on the ``meta`` device, which has no
+    ``torch.Generator``: a device and no state. The init functions draw
+    from it as from a generator and get tensors with shapes and dtypes
+    only (``Model.param_shapes``)."""
+
+    device = torch.device("meta")
+
+
 def _dense(gen: torch.Generator, shape, scale_dim: int, dtype: torch.dtype) -> torch.Tensor:
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
+    draw = None if isinstance(gen, MetaGenerator) else gen
+    x = torch.randn(shape, generator=draw, dtype=torch.float32, device=gen.device)
     return (x / math.sqrt(scale_dim)).to(dtype)
 
 

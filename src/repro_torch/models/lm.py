@@ -15,13 +15,19 @@ parameter per layer (or per block and slot), the indices in its path:
   ``blocks.<b>.{mamba,dense,moe}.<slot>.<leaf>`` and
   ``blocks.<b>.{attn_norm,mlp_norm}.<i>``;
 * ``ssm`` (xlstm): ``mlstm.<i>.<leaf>`` and ``slstm.<i>.<leaf>``;
+* ``audio`` (whisper): ``enc.<i>.<leaf>`` and ``dec.<i>.<leaf>``, beside
+  ``enc_final_norm``;
 
 beside the top-level ``embed``, ``final_norm`` and ``lm_head``. A run of
 integer path segments is an ``nn.ModuleList`` (or ``nn.ParameterList``),
 named segments an ``nn.ModuleDict`` (or ``nn.ParameterDict``), so the
-state-dict names are these names. The ``audio`` family is not ported yet
-and raises. The dry-run's ``input_specs`` and ``param_shapes`` wait for
-``launch/``.
+state-dict names are these names.
+
+For the dry-run, ``Model.param_shapes(cfg)`` gives the parameters and
+``model.input_specs(shape)`` every input of a shape's step as tensors on
+the ``meta`` device: shapes and dtypes, no memory. ``Model(cfg,
+device="meta")`` is a model of such tensors, whose steps run without
+computing anything.
 """
 from __future__ import annotations
 
@@ -30,12 +36,19 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..core.types import resolve_device, to_device
-from . import hybrid, transformer, xlstm
+from . import encdec, hybrid, transformer, xlstm
+from .layers import MetaGenerator, dtype_of
 
 _FAMILY_MODS = {"dense": transformer, "moe": transformer, "vlm": transformer, "hybrid": hybrid,
-                "ssm": xlstm}
+                "ssm": xlstm, "audio": encdec}
+
+
+def _generator(device: torch.device, seed: int):
+    if device.type == "meta":
+        return MetaGenerator()
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def _parameter(t: torch.Tensor, device: torch.device) -> nn.Parameter:
@@ -66,23 +79,19 @@ class Model(nn.Module):
 
     ``params`` (by state-dict name, e.g. from ``params_from_reference``)
     gives the weights; without it they are drawn from a ``torch.Generator``
-    on the device seeded with ``seed``. Tensors already on ``device`` are
-    taken as they are, not copied. Parameters do not require grad until
-    ``repro_torch.train.init_all`` makes the model trainable.
+    on the device seeded with ``seed`` (on ``meta``, shapes only). Tensors
+    already on ``device`` are taken as they are, not copied. Parameters do
+    not require grad until ``repro_torch.train.init_all`` makes the model
+    trainable.
     """
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int = 0,
                  params: Optional[Dict[str, torch.Tensor]] = None) -> None:
         super().__init__()
-        if cfg.family not in _FAMILY_MODS:
-            raise NotImplementedError(
-                f"the {cfg.family!r} family is not ported yet (ROADMAP.md, queue 1 item 3)"
-            )
         self.cfg = cfg
         self.device = resolve_device(device)
         if params is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = self.mod.init_params(cfg, gen)
+            params = self.mod.init_params(cfg, _generator(self.device, seed))
         tree: Dict = {}
         for name, t in params.items():
             *path, leaf = name.split(".")
@@ -108,6 +117,12 @@ class Model(nn.Module):
     def mod(self):
         return _FAMILY_MODS[self.cfg.family]
 
+    @staticmethod
+    def param_shapes(cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+        """The parameters of ``cfg`` by state-dict name as ``meta`` tensors:
+        shapes and dtypes, nothing allocated or drawn."""
+        return _FAMILY_MODS[cfg.family].init_params(cfg, MetaGenerator())
+
     def _inputs(self, batch: Dict) -> Dict[str, torch.Tensor]:
         # pinned, asynchronous host copies: a blocking copy would wait for
         # the decode steps queued before a prefetched admission's prefill
@@ -129,3 +144,26 @@ class Model(nn.Module):
 
     def cache_shapes(self, batch: int, cache_len: int):
         return self.mod.cache_shapes(self.cfg, batch, cache_len)
+
+    def input_specs(self, shape: ShapeConfig) -> Dict:
+        """Every input of ``shape``'s step as ``meta`` tensors, the
+        reference's keys: train ``tokens``, ``labels`` (B, S) int32; prefill
+        ``tokens``; the modality stubs beside them (vlm ``patch_embeds``,
+        audio ``frames``) in the model dtype; decode ``token`` (B,) int32
+        and the ``cache`` of ``cache_shapes(B, S)``."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":  # one new token against a seq_len cache
+            return {"token": meta((B,)), "cache": self.cache_shapes(B, S)}
+        specs = {"tokens": meta((B, S))}
+        if shape.kind == "train":
+            specs["labels"] = meta((B, S))
+        if cfg.family == "vlm":
+            specs["patch_embeds"] = meta((B, cfg.vision_tokens, cfg.d_model), dtype_of(cfg))
+        if cfg.family == "audio":
+            specs["frames"] = meta((B, cfg.enc_positions, cfg.d_model), dtype_of(cfg))
+        return specs

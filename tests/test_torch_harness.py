@@ -299,8 +299,8 @@ def request_arrays(sizes, seed=0):
 # ------------------------------------------------------------ the LM stack, both packages
 def ref_lm():
     """The JAX package's ``repro.configs``, ``repro.models`` (with its
-    ``layers``, ``attention``, ``moe``, ``transformer``, ``ssm``, ``hybrid``
-    and ``xlstm`` modules),
+    ``layers``, ``attention``, ``moe``, ``transformer``, ``ssm``, ``hybrid``,
+    ``xlstm`` and ``encdec`` modules),
     ``repro.serve`` (and ``repro.serve.engine``) and ``repro.data``
     (imported on first call).
 
@@ -316,8 +316,8 @@ def ref_lm():
     names = dict(configs="repro.configs", models="repro.models", layers="repro.models.layers",
                  attention="repro.models.attention", moe="repro.models.moe",
                  transformer="repro.models.transformer", ssm="repro.models.ssm", hybrid="repro.models.hybrid",
-                 xlstm="repro.models.xlstm", serve="repro.serve", engine="repro.serve.engine",
-                 data="repro.data")
+                 xlstm="repro.models.xlstm", encdec="repro.models.encdec", serve="repro.serve",
+                 engine="repro.serve.engine", data="repro.data")
     return types.SimpleNamespace(**{k: importlib.import_module(m) for k, m in names.items()})
 
 
@@ -444,10 +444,28 @@ def _leaf(tree, path: str):
     return tree
 
 
+def extras_for(cfg, rng, b: int):
+    """The family's extra inputs for ``b`` rows from ``rng``, in the model
+    dtype, as ``(port's, reference's)`` dicts of the same bytes: audio
+    ``frames`` (B, enc_positions, D), vlm ``patch_embeds`` (B,
+    vision_tokens, D); none for the other families (nothing drawn)."""
+    import jax.numpy as jnp
+    import ml_dtypes
+
+    dims = {"audio": ("frames", cfg.enc_positions), "vlm": ("patch_embeds", cfg.vision_tokens)}
+    if cfg.family not in dims:
+        return {}, {}
+    key, n = dims[cfg.family]
+    a = rng.standard_normal((b, n, cfg.d_model)).astype(np.float32)
+    a = a.astype(ml_dtypes.bfloat16) if cfg.dtype == "bfloat16" else a
+    return {key: to_torch(a)}, {key: jnp.asarray(a)}
+
+
 def check_forward(arch: str, dtype: str, s: int = 20, **overrides) -> None:
     """Loss and aux of ``train_loss``; the prefill's last logits and cache
     at ``cache_len`` > ``s`` and three decode steps after it; against the
-    jitted reference on the same weights and tokens. bfloat16 logits and
+    jitted reference on the same weights, tokens and extra inputs
+    (``extras_for``: whisper's frames). bfloat16 logits and
     states are held within twice the reference's own spread (its path
     jitted against the same path op by op) where that exceeds 6e-2 of the
     largest: on the two-block jamba that spread reaches 0.29 of logits up
@@ -462,8 +480,10 @@ def check_forward(arch: str, dtype: str, s: int = 20, **overrides) -> None:
     rng = np.random.default_rng(s)
     toks = rng.integers(0, model.cfg.vocab, (2, s)).astype(np.int32)
     labels = np.roll(toks, -1, 1)
-    rloss, raux = jax.jit(rmodel.train_loss)(rparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
-    loss, aux = model.train_loss({"tokens": toks, "labels": labels})
+    extras, rextras = extras_for(model.cfg, rng, 2)
+    rloss, raux = jax.jit(rmodel.train_loss)(rparams, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+                                                       **rextras})
+    loss, aux = model.train_loss({"tokens": toks, "labels": labels, **extras})
     tol = 1e-4 if dtype == "float32" else 6e-2
     np.testing.assert_allclose(float(loss), float(rloss), rtol=tol, atol=tol)
     assert sorted(aux) == sorted(raux)
@@ -482,13 +502,13 @@ def check_forward(arch: str, dtype: str, s: int = 20, **overrides) -> None:
     paths = []
     for run_prefill, run_decode in runs:
         with jax.disable_jit(run_prefill is prefill):
-            out = [run_prefill(rparams, {"tokens": jnp.asarray(toks)})]
+            out = [run_prefill(rparams, {"tokens": jnp.asarray(toks), **rextras})]
             for nxt in nxts:
                 out.append(run_decode(rparams, out[-1][0], nxt)[::-1])
         paths.append(out)
     ref, own = paths[0], (paths[1] if len(paths) > 1 else [None] * 4)
 
-    cache, logits = model.prefill({"tokens": toks}, cache_len=s + 8)
+    cache, logits = model.prefill({"tokens": toks, **extras}, cache_len=s + 8)
     assert logits.dtype == getattr(torch, dtype)
     rcache, rlogits = ref[0]
     assert_logits_close(logits, rlogits, dtype, "prefill", own[0] and own[0][1])
@@ -506,7 +526,8 @@ def check_forward(arch: str, dtype: str, s: int = 20, **overrides) -> None:
 
 def check_gradients(arch: str, s: int = 24, **overrides) -> None:
     """float32: every gradient leaf of ``train_loss`` within 1e-4 of its
-    largest magnitude in the jitted ``jax.grad``'s."""
+    largest magnitude in the jitted ``jax.grad``'s (the family's extra
+    inputs from ``extras_for``)."""
     import jax
     import jax.numpy as jnp
 
@@ -514,9 +535,12 @@ def check_gradients(arch: str, s: int = 24, **overrides) -> None:
     from repro_torch.train import init_all
 
     rmodel, rparams, model = lm_pair(arch, "float32", **overrides)
-    toks = np.random.default_rng(3).integers(0, model.cfg.vocab, (2, s)).astype(np.int32)
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, model.cfg.vocab, (2, s)).astype(np.int32)
+    extras, rextras = extras_for(model.cfg, rng, 2)
     batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
-    rbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    rbatch = {**{k: jnp.asarray(v) for k, v in batch.items()}, **rextras}
+    batch.update(extras)
     (rloss, _), rgrads = jax.jit(jax.value_and_grad(lambda p: rmodel.train_loss(p, rbatch), has_aux=True))(rparams)
     params, _ = init_all(model, OptConfig())
     loss, _ = model.train_loss(batch)
@@ -567,10 +591,12 @@ def check_train_steps(arch: str, steps: int = 3, s: int = 16, **overrides) -> No
     rstep, step = rts.make_train_step(rmodel, roc, None), make_train_step(model, oc)
     rlrs = []
     for i in range(steps):
-        toks = np.random.default_rng(10 + i).integers(0, model.cfg.vocab, (4, s)).astype(np.int32)
+        rng = np.random.default_rng(10 + i)
+        toks = rng.integers(0, model.cfg.vocab, (4, s)).astype(np.int32)
+        extras, rextras = extras_for(model.cfg, rng, 4)
         batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
-        rparams, rstate, rm = rstep(rparams, rstate, {k: jnp.asarray(v) for k, v in batch.items()})
-        params, state, m = step(params, state, batch)
+        rparams, rstate, rm = rstep(rparams, rstate, {**{k: jnp.asarray(v) for k, v in batch.items()}, **rextras})
+        params, state, m = step(params, state, {**batch, **extras})
         assert sorted(m) == sorted(rm)
         for k in m:
             if k == "aux_overflow":
@@ -616,6 +642,26 @@ def check_serve(arch: str, **overrides) -> None:
     assert outs[1] == outs[0]
     assert [len(t) for t in outs[1][:5]] == [3, 5, 1, 0, 5] and len(outs[1]) == 6
     assert engines[1].refills >= 1
+
+
+def check_generate(arch: str, **overrides) -> None:
+    """Greedy ``generate()`` streams (float32) of one batch of prompts, with
+    the family's extra inputs (``extras_for``: whisper's frames), equal the
+    reference engine's."""
+    import jax.numpy as jnp
+
+    r = ref_lm().serve
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    rmodel, rparams, model = lm_pair(arch, "float32", **overrides)
+    kw = dict(max_new_tokens=6, temperature=0.0, eos_id=1)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(5, model.cfg.vocab, (3, 10)).astype(np.int32)
+    extras, rextras = extras_for(model.cfg, rng, 3)
+    want = r.ServeEngine(rmodel, rparams, r.ServeConfig(**kw)).generate(jnp.asarray(prompts), extras=rextras)
+    got = ServeEngine(model, ServeConfig(**kw)).generate(prompts, extras=extras)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (3, 6)
+    assert got.numpy().tolist() == np.asarray(want).tolist()
 
 
 def check_resume(tmp_path, cfg) -> None:

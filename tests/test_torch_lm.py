@@ -136,10 +136,17 @@ def test_parameters_carry_the_reference_leaf_names():
         np.testing.assert_array_equal(to_numpy(model.layers[1][leaf]), to_numpy(np.asarray(stacked)[1]))
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 3"):
-        Model(get_arch(arch).reduced(), device="cpu")
+def test_harness_checks_feed_the_vlm_patch_embeds():
+    """``test_torch_harness.check_forward`` on the reduced internvl2 in
+    float32: its ``extras_for`` draws the 16 patch embeddings from the
+    seed and feeds the same bytes to both packages."""
+    from test_torch_harness import check_forward, extras_for
+
+    cfg = get_arch("internvl2-76b").reduced()
+    extras, rextras = extras_for(cfg, np.random.default_rng(0), 2)
+    assert tuple(extras["patch_embeds"].shape) == (2, cfg.vision_tokens, cfg.d_model)
+    assert to_numpy(extras["patch_embeds"]).tobytes() == to_numpy(rextras["patch_embeds"]).tobytes()
+    check_forward("internvl2-76b", "float32")
 
 
 def test_model_defaults_to_the_card():
