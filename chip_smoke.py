@@ -216,16 +216,45 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      at the H100 SXM's published peaks) and the wall over
                      the larger term. It launches no K1–K4; the count is
                      printed.
+22. ``sharded_path`` — the multi-process runner (``launch.mesh.spawn``;
+                     the kernels built by this process first, so the ranks
+                     only load them): 4 gloo ranks sharing ``cuda:0``, one
+                     processor a rank of p = 4 at n_per_proc = 2^21
+                     (main_path's 2^23 keys and configuration):
+                     ``bsp_sort_sharded_safe`` on U, DD, U + payload, iran
+                     U and [BSI] U, each rank's row equal (sha256 of its
+                     buffer, count and payload) to the matching row of one
+                     process's ``bsp_sort_safe`` on the card, with the same
+                     tiers; the adversarial input climbs whp -> whp2 ->
+                     exact with one ``prepare`` entry; K1, K2 and K3 must
+                     launch in the ranks. The MoE at granite-moe-1b-a400m's
+                     widths (E = 32, top-8, D = 1024, F = 512; seeded
+                     weights) on a (data = 2, model = 2) mesh with (4,
+                     4096) tokens: ``moe_ep`` (cf 1.25, no drop),
+                     ``moe_tp_sharded``, ``moe_ep_decode`` at 8 lanes,
+                     float32 within 1e-4 of the largest |y| of the dense
+                     evaluation of each rank's tokens and bfloat16 within
+                     3e-2, and ``moe_ep_safe`` with a router biased to model
+                     shard 0, which must walk whp -> full. Per rank: warm
+                     walls (median of 5, every rank started together),
+                     peak memory; rank 0: the collectives' ms and the
+                     all_to_all's share of a sort's and a ``moe_ep``'s wall,
+                     busy and idle share. Then a world of one over NCCL
+                     (mesh (1, 1)), the same checks; its calls move no bytes
+                     between cards. Walls over gloo go through the host on
+                     one card and say nothing of NVLink.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20 and 21, each counted from zero just
-before the phase's checked runs and read just after; the int64 routes of K2
-and K3 and K3's float route are listed and counted on their own),
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20, 21 and 22, each counted from zero
+just before the phase's checked runs and read just after, phase 22's
+summed over its ranks and also given as ``sharded_launches``; the int64
+routes of K2 and K3 and K3's float route are listed and counted on their
+own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17, 18, 19, 20, 21) runs the build and those phases only,
+phases 11, 13, 14, 16, 17, 18, 19, 20, 21, 22) runs the build and those phases only,
 and prints no result line.
 """
 from __future__ import annotations
@@ -3413,6 +3442,320 @@ def adversarial(p, n_p):
     return np.repeat((np.arange(p, dtype=np.int32) * 1000)[:, None], n_p, axis=1)
 
 
+# ---------------------------------------------------------- sharded_path
+#: one processor a rank: main_path's 2^23 keys on 4 ranks
+SHARD = dict(p=4, n_per_proc=2**21)
+#: (run, config, distribution, payloads): the checked sorts of every rank
+SHARD_RUNS = (("det U", SLICE, "U", 0), ("det DD", SLICE, "DD", 0), ("det U+payload", SLICE, "U", 1),
+              ("iran U", IRAN, "U", 0), ("bitonic U", dict(algorithm="bitonic", local_sort="bitonic"), "U", 0))
+#: the MoE at granite-moe-1b-a400m's widths: (data, model) mesh, global
+#: tokens (B, S), decode lanes; the biased router's lean on model shard 0
+SHARD_MOE = dict(mesh=(2, 2), tokens=(4, 4096), lanes=8, bias=0.02)
+SHARD_MOE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def shard_inputs(core, p, n_p, dist, nv):
+    """(p, n_p) int32 keys (and an int32 payload) on the host, from a seed:
+    every rank makes the same and keeps its row."""
+    import numpy as np
+
+    x = adversarial(p, n_p) if dist == "adversarial" else core.datagen.generate(dist, p, n_p)
+    vals = [np.arange(p * n_p, dtype=np.int32).reshape(p, n_p)][:nv]
+    return x, vals
+
+
+def row_digest(torch, res, pvals, r):
+    """sha256 of processor r's row of a result: buffer, count, payloads."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (res.buf[r], res.count[r:r + 1], *[v[r] for v in pvals]):
+        h.update(t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def moe_dense(torch, moe, params, x, k):
+    """Every expert on every token, weighted by the router (the reference's
+    own check of its EP paths)."""
+    x2d = x.reshape(-1, x.shape[-1])
+    probs, experts, _ = moe._router(x2d, params["router"], k)
+    y = torch.zeros_like(x2d)
+    for e in range(params["w_gate"].shape[0]):
+        w = (probs * (experts == e)).sum(-1).to(x.dtype)
+        y = y + w[:, None] * moe._expert_ffn(x2d, params["w_gate"][e], params["w_up"][e], params["w_down"][e])
+    return y.reshape(x.shape)
+
+
+def moe_error(torch, y, want, dtype):
+    """Max error of ``y`` against the dense evaluation: float32 over 1e-4 of
+    the largest |y| must stay below 1; bfloat16 the largest excess over
+    3e-2 + 3e-2 |want| (``assert_allclose``'s rule) must be 0."""
+    d = (y.float() - want.float()).abs()
+    if dtype == "float32":
+        return dict(max_abs_err=float(d.max()), tol=SHARD_MOE_TOL[dtype] * float(want.float().abs().max()))
+    excess = d - SHARD_MOE_TOL[dtype] * (1 + want.float().abs())
+    return dict(max_abs_err=float(d.max()), tol=SHARD_MOE_TOL[dtype], excess=float(excess.max().clamp(min=0)))
+
+
+@contextlib.contextmanager
+def collective_clock(dist, sync):
+    """Host ms and calls of each ``torch.distributed`` collective the
+    processor groups call, each timed from a synchronized card to its end
+    on the card (the profiler gives gloo's CUDA work no time)."""
+    spent = {}
+    names = ("all_to_all_single", "all_gather", "all_reduce", "broadcast")
+    originals = {name: getattr(dist, name) for name in names}
+
+    def clocked(name, fn):
+        def call(*args, **kw):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            sync()
+            ms, calls = spent.get(name, (0.0, 0))
+            spent[name] = (ms + (time.perf_counter() - t0) * 1e3, calls + 1)
+            return out
+
+        return call
+
+    for name, fn in originals.items():
+        setattr(dist, name, clocked(name, fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def sharded_rank(rank, n, spec):
+    """One rank of ``sharded_path``: its row of each checked sort (digests,
+    tiers), the kernels it launched, the adversarial escalation, warm walls,
+    one profiled sort's all_to_all share (rank 0), then the MoE's mesh paths
+    at granite's widths against the dense evaluation of its tokens."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.core as core
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build as build
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+    from repro_torch.models import moe
+
+    kind = spec["device"]
+    mesh = make_mesh((n,), ("procs",), kind)
+    dev = mesh_device(mesh)
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    n_p = spec["n_per_proc"]
+    out = dict(rank=rank, device=str(dev), backend=dist.get_backend(), runs=[])
+    rows = {}
+    build.reset_counts()
+    for name, kw, dist_name, nv in SHARD_RUNS:
+        x, vals = shard_inputs(core, n, n_p, dist_name, nv)
+        row = torch.from_numpy(x[rank:rank + 1]).to(dev)
+        rv = [torch.from_numpy(v[rank:rank + 1]).to(dev) for v in vals]
+        cfg = core.SortConfig(p=n, n_per_proc=n_p, **kw)
+        res, pvals, st = core.bsp_sort_sharded_safe(row, mesh, "procs", cfg, values=rv)
+        rows[name] = (row, rv, cfg)
+        out["runs"].append(dict(run=name, digest=row_digest(torch, res, pvals, 0), tiers=st.as_row()))
+    sync()
+    out["launches"] = build.counts()  # the checked runs only
+
+    x, _ = shard_inputs(core, n, n_p, "adversarial", 0)
+    ex = core.SortExecutor()
+    cfg = core.SortConfig(p=n, n_per_proc=n_p, algorithm="iran", pair_capacity="whp")
+    res, _, st = core.bsp_sort_sharded_safe(torch.from_numpy(x[rank:rank + 1]).to(dev), mesh, "procs", cfg,
+                                            executor=ex)
+    out["adversarial"] = dict(digest=row_digest(torch, res, [], 0), tiers=st.as_row(),
+                              prepare_entries=sum(k[0] == "prepare" for k in ex.trace_counts))
+
+    # warm walls with every rank starting together, then one profiled run
+    row, rv, cfg = rows["det U+payload"]
+    walls = []
+    for _ in range(5):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        core.bsp_sort_sharded_safe(row, mesh, "procs", cfg, values=rv)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["sort_walls_ms"] = walls
+    out["sort_wall_ms"] = statistics.median(walls)
+    if rank == 0:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+        dist.barrier()
+        with profile(activities=acts) as prof, collective_clock(dist, sync) as coll:
+            sync()
+            t0 = time.perf_counter()
+            core.bsp_sort_sharded_safe(row, mesh, "procs", cfg, values=rv)
+            sync()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        a2a = coll.get("all_to_all_single", (0.0, 0))[0]
+        busy = sum(v[0] for v in device_split(torch, prof).values()) if on_card else None
+        out["profiled"] = dict(wall_ms=prof_ms, all_to_all_ms=a2a, all_to_all_share=a2a / prof_ms,
+                               collectives={k: dict(ms=ms, calls=c) for k, (ms, c) in coll.items()},
+                               device_busy_ms=busy, idle_share=None if busy is None else idle_share(busy, prof_ms))
+    else:
+        dist.barrier()
+        core.bsp_sort_sharded_safe(row, mesh, "procs", cfg, values=rv)
+    sync()
+
+    # the MoE's mesh paths at granite's widths, every check on this rank's block
+    m = spec["moe"]
+    moe_mesh = make_mesh(m["mesh"], ("data", "model"), kind)
+    mi = moe.MoEMeshInfo(mesh=moe_mesh, model_axis="model", data_axes=("data",))
+    arch = dataclasses.replace(get_arch(LM_ARCH), **m.get("widths", {}))  # widths: a CPU rehearsal's cut
+    gen = torch.Generator().manual_seed(23)
+    full32 = moe.init_moe(gen, dataclasses.replace(arch, dtype="float32"))
+    B, S = m["tokens"]
+    tokens = torch.randn((B, S, arch.d_model), generator=gen)
+    lanes = torch.randn((m["lanes"], 1, arch.d_model), generator=gen)
+    checks = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(arch, dtype=dtype)
+        dt = getattr(torch, dtype)
+        full = {k: v.to(dev, torch.float32 if k == "router" else dt) for k, v in full32.items()}
+        ep = moe.expert_block(full, mi)
+        for path, x_all, seq in (("moe_ep", tokens, True), ("moe_tp_sharded", tokens, False),
+                                 ("moe_ep_decode", lanes, False)):
+            xl = moe.token_block(x_all, mi, seq_shard=seq).to(dev, dt)
+            if path == "moe_ep":
+                y, aux = moe.moe_ep(ep, xl, cfg, mi, capacity_factor=1.25)
+            elif path == "moe_tp_sharded":
+                y, aux = moe.moe_tp_sharded(moe.ffn_block(full, mi), xl, cfg, mi, capacity_factor=2.0)
+            else:
+                y, aux = moe.moe_ep_decode(ep, xl, cfg, mi)
+            want = moe_dense(torch, moe, full, xl, arch.moe_top_k)
+            checks[f"{path} {dtype}"] = dict(tokens=list(xl.shape[:2]), overflow=bool(aux["overflow"]),
+                                             **moe_error(torch, y, want, dtype))
+    cfg = dataclasses.replace(arch, dtype="float32")
+    full = {k: v.to(dev) for k, v in full32.items()}
+    full["router"] = full["router"].clone()
+    full["router"][:, : arch.moe_experts // mi.model_size] += m["bias"]
+    xl = moe.token_block(tokens + 1.0, mi, seq_shard=True).to(dev)
+    stats = core.TierStats()
+    y, aux, _ = moe.moe_ep_safe(moe.expert_block(full, mi), xl, cfg, mi, capacity_factor=1.25, stats=stats)
+    checks["moe_ep_safe biased float32"] = dict(tiers=stats.as_row(), overflow=bool(aux["overflow"]),
+                                                **moe_error(torch, y, moe_dense(torch, moe, full, xl, arch.moe_top_k),
+                                                            "float32"))
+    out["moe"] = checks
+    x = moe.token_block(tokens, mi, seq_shard=True).to(dev, torch.bfloat16)
+    ep = moe.expert_block({k: v.to(dev, torch.float32 if k == "router" else torch.bfloat16)
+                           for k, v in full32.items()}, mi)
+    walls = []
+    for _ in range(5):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        moe.moe_ep(ep, x, arch, mi, capacity_factor=1.25)
+        sync()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["moe_ep_walls_ms"] = walls
+    out["moe_ep_wall_ms"] = statistics.median(walls)
+    dist.barrier()
+    with collective_clock(dist, sync) if rank == 0 else contextlib.nullcontext({}) as coll:
+        sync()
+        t0 = time.perf_counter()
+        moe.moe_ep(ep, x, arch, mi, capacity_factor=1.25)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    if rank == 0:
+        a2a = coll.get("all_to_all_single", (0.0, 0))[0]
+        out["moe_ep_clocked"] = dict(wall_ms=wall, all_to_all_ms=a2a, all_to_all_share=a2a / wall,
+                                     collectives={k: dict(ms=ms, calls=c) for k, (ms, c) in coll.items()})
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+    return out
+
+
+def sharded_world(torch, core, build, n, backend, device, n_p, moe_spec):
+    """Run ``sharded_rank`` on ``n`` ranks and hold each against the
+    single-process sorts on the same device; returns (line, launches)."""
+    from repro_torch.launch.mesh import spawn
+
+    dev = torch.device(device)
+    want, tiers = {}, {}
+    for name, kw, dist_name, nv in (*SHARD_RUNS, ("adversarial", dict(algorithm="iran", pair_capacity="whp"),
+                                                  "adversarial", 0)):
+        x, vals = shard_inputs(core, n, n_p, dist_name, nv)
+        xt, vt = torch.from_numpy(x).to(dev), [torch.from_numpy(v).to(dev) for v in vals]
+        res, pvals, st = core.bsp_sort_safe(xt, core.SortConfig(p=n, n_per_proc=n_p, **kw), values=vt, device=dev)
+        check_sort(torch, core, xt, vt, res, pvals, st, "sharded_path", f"{name} on one process")
+        want[name] = [row_digest(torch, res, pvals, r) for r in range(n)]
+        tiers[name] = st.as_row()
+    t0 = time.perf_counter()
+    ranks = spawn(sharded_rank, n, backend=backend, device=device,
+                  args=(dict(device=device, n_per_proc=n_p, moe=dict(moe_spec, mesh=(1, 1) if n == 1 else
+                                                                       moe_spec["mesh"])),))
+    spawn_s = time.perf_counter() - t0
+    what = f"{backend} x{n}"
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for r in ranks:
+        if r["device"].split(":")[0] != device or r["backend"] != backend:
+            fail("sharded_path", f"{what}: rank {r['rank']} ran on {r['device']} over {r['backend']}")
+        for got in r["runs"]:
+            if got["digest"] != want[got["run"]][r["rank"]]:
+                fail("sharded_path", f"{what}: rank {r['rank']}'s row of {got['run']} differs from bsp_sort_safe's")
+            if got["tiers"] != tiers[got["run"]]:
+                fail("sharded_path", f"{what}: {got['run']} walked {got['tiers']}, bsp_sort_safe {tiers[got['run']]}")
+        adv = r["adversarial"]
+        # one processor cannot overflow: the escalation needs two or more
+        if adv["digest"] != want["adversarial"][r["rank"]] or adv["prepare_entries"] != 1 \
+                or (n > 1 and adv["tiers"]["retries"] < 1):
+            fail("sharded_path", f"{what}: adversarial escalation {adv}")
+        for path, c in r["moe"].items():
+            if c["overflow"] or (c["max_abs_err"] > c["tol"] if "excess" not in c else c["excess"] > 0):
+                fail("sharded_path", f"{what}: rank {r['rank']} {path} {c}")
+        safe = r["moe"]["moe_ep_safe biased float32"]["tiers"]
+        if n > 1 and (safe["retries"] < 1 or safe.get("ok_full") != 1):
+            fail("sharded_path", f"{what}: moe_ep_safe did not climb past whp: {safe}")
+        if device == "cuda":
+            # every rank launches the path's kernels; one processor receives
+            # one run and merges nothing, so a world of one launches K1 only
+            require_launched(r["launches"], KERNEL_NAMES[:3] if n > 1 else KERNEL_NAMES[:1], "sharded_path",
+                             f"{what} rank {r['rank']}")
+        for name in KERNEL_NAMES:
+            launches[name] += r["launches"].get(name, 0)
+    line = dict(phase="sharded_path", ok=True, backend=backend, ranks=n, n_per_proc=n_p, spawn_and_run_s=spawn_s,
+                transport=("gloo through the host, every rank on one card: says nothing of NVLink"
+                           if backend == "gloo" else "NCCL in a world of one: its calls move no bytes between cards"),
+                runs={r: tiers[r] for r in tiers}, launches=launches,
+                rank_launches=[{k: v for k, v in r["launches"].items() if v} for r in ranks],
+                sort_wall_ms=[r["sort_wall_ms"] for r in ranks], moe_ep_wall_ms=[r["moe_ep_wall_ms"] for r in ranks],
+                peak_mem_gib=[r["peak_mem_gib"] for r in ranks], profiled=ranks[0]["profiled"],
+                moe_ep_clocked=ranks[0]["moe_ep_clocked"],
+                moe={path: [r["moe"][path] for r in ranks] for path in ranks[0]["moe"]},
+                adversarial=ranks[0]["adversarial"]["tiers"])
+    return line, launches
+
+
+def phase_sharded_path(torch, core, build, device="cuda", n_p=SHARD["n_per_proc"], moe_spec=SHARD_MOE):
+    """The multi-process runner: 4 gloo ranks sharing the card, then a world
+    of one over NCCL (gloo on the host in a CPU rehearsal, with ``n_p`` and
+    ``moe_spec`` cut)."""
+    t_phase = time.perf_counter()
+    worlds, launches = [], dict.fromkeys(KERNEL_NAMES, 0)
+    for n, backend in ((SHARD["p"], "gloo"), (1, "nccl" if device == "cuda" else "gloo")):
+        line, counted = sharded_world(torch, core, build, n, backend, device, n_p, moe_spec)
+        emit(line)  # one line a world, as it ends
+        worlds.append(dict(backend=backend, ranks=n, spawn_and_run_s=line["spawn_and_run_s"],
+                           sort_wall_ms=line["sort_wall_ms"], moe_ep_wall_ms=line["moe_ep_wall_ms"],
+                           all_to_all_share=line["profiled"]["all_to_all_share"],
+                           moe_ep_all_to_all_share=line["moe_ep_clocked"]["all_to_all_share"],
+                           peak_mem_gib=line["peak_mem_gib"]))
+        for name in KERNEL_NAMES:
+            launches[name] += counted[name]
+    emit({"phase": "sharded_path", "ok": True, "config": dict(SHARD, **SLICE), "runs": [r[0] for r in SHARD_RUNS],
+          "moe": dict(moe_spec, arch=LM_ARCH), "worlds": worlds, "launches": launches,
+          "nvidia_smi": nvidia_smi() if device == "cuda" else None, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def phase_ladder(torch, core):
     cfg = core.SortConfig(p=128, n_per_proc=8192, **SLICE)
     x = torch.from_numpy(adversarial(cfg.p, cfg.n_per_proc)).cuda()
@@ -3490,7 +3833,7 @@ def main() -> int:
                  "segmented_path": phase_segmented_path, "planner_path": phase_planner_path,
                  "delta_path": phase_delta_path, "lm_path": phase_lm_path,
                  "train_path": phase_train_path, "recurrent_path": phase_recurrent_path,
-                 "audio_path": phase_audio_path}
+                 "audio_path": phase_audio_path, "sharded_path": phase_sharded_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -3545,6 +3888,11 @@ def main() -> int:
         launches[name] += audio_launches.get(name, 0)
     emit({"phase": "audio_launches", "ok": True, "launches": audio_launches,
           "none_as_expected": not any(audio_launches.values())})
+    # the multi-process runner: K1-K3 run inside every rank
+    sharded_launches = phase_sharded_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += sharded_launches.get(name, 0)
+    emit({"phase": "sharded_launches", "ok": True, "launches": sharded_launches})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 
@@ -3570,7 +3918,7 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=e["max_abs_err"], ms=e["ms"],
                             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"], bound_by=e["bound_by"],
-                            library_ms=e["library_ms"]))
+                            library_ms=e["library_ms"], sharded_launches=sharded_launches[name]))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,14 @@
-"""BSP sorting over p simulated processors: SORT_DET_BSP, SORT_IRAN_BSP,
+"""BSP sorting over p simulated processors, or one processor per rank of a
+``torch.distributed`` mesh axis: SORT_DET_BSP, SORT_IRAN_BSP,
 SORT_RAN_BSP and [BSI] (``SortConfig.algorithm``), the radix route and the
 radix local sort ([DSR]/[RSR]).
 
 Public API:
     SortConfig, SortResult, PreparedSort — configuration / result types
     bsp_sort                             — one sort at the config's capacity
+    bsp_sort_sharded,
+    bsp_sort_sharded_safe                — the same, one processor per rank
+                                           of a mesh axis
     bsp_sort_safe / bsp_sort_safe_launch,
     InFlightSort                         — overflow-safe driver: prepare once,
                                            then the route stage per rung of
@@ -34,9 +38,14 @@ from .api import (
     bsp_sort,
     bsp_sort_safe,
     bsp_sort_safe_launch,
+    bsp_sort_sharded,
+    bsp_sort_sharded_safe,
     default_executor,
     gathered_output,
     phase_fns,
+    spmd_prepare_fn,
+    spmd_route_fn,
+    spmd_sort_fn,
 )
 from .bsp import BSPMachine, CRAY_T3D, Prediction, predict, theoretical_max_imbalance
 from .convert import (
@@ -79,6 +88,8 @@ __all__ = [
     "bsp_sort",
     "bsp_sort_safe",
     "bsp_sort_safe_launch",
+    "bsp_sort_sharded",
+    "bsp_sort_sharded_safe",
     "config_from_reference",
     "datagen",
     "default_executor",
@@ -96,6 +107,9 @@ __all__ = [
     "segmented_sort_safe",
     "sentinel_for",
     "sort_segments",
+    "spmd_prepare_fn",
+    "spmd_route_fn",
+    "spmd_sort_fn",
     "theoretical_max_imbalance",
     "tree_to_reference",
     "view_from_reference",

@@ -1,4 +1,19 @@
-"""Public entry points of the port: the paper's sorts on p simulated processors.
+"""Public entry points of the port: the paper's sorts on p processors.
+
+Two runners share one SPMD implementation, as in the JAX package:
+
+* :func:`bsp_sort` — p simulated processors in one process: the
+  (p, n_per_proc) layout, the processor as dimension 0
+  (``primitives.LocalProcs``).
+* :func:`bsp_sort_sharded` — one processor per rank of a mesh axis
+  (``torch.distributed``; ``primitives.GroupProcs``): each rank passes its
+  own (1, n_per_proc) row and gets its own row of the result, the same
+  bytes as the matching row of :func:`bsp_sort`. Every collective of the
+  stages (the Ph4 count exchange, the fused Ph5 h-relation, the sample
+  gathers, the flags' ``pmax``, the XOR and ring permutations, the radix
+  extremes) is then one call on the axis's process group.
+
+The entry points:
 
 * :func:`bsp_sort` — one sort of a (p, n_per_proc) array at the
   configuration's capacity; the result carries the ``overflow`` flag.
@@ -8,6 +23,9 @@
   receive buffer holds the whole input, so no key is ever dropped.
   :class:`InFlightSort` splits it at the one host sync: reading a rung's
   overflow flag.
+* :func:`bsp_sort_sharded_safe` — the same escalation over a mesh axis;
+  the flag is the group's ``any``, so every rank climbs the ladder with
+  the others.
 
 ``algorithm`` is ``det`` (SORT_DET_BSP), ``iran`` (SORT_IRAN_BSP), ``ran``
 (SORT_RAN_BSP) or ``bitonic`` ([BSI]). ``route="radix"`` replaces Ph3–Ph4
@@ -21,6 +39,9 @@ randomized sorts draw their sample positions from ``generator``, a CPU
 rung draws the next positions from it. Without one, rung r draws from a
 generator seeded from ``(cfg.seed, r)``. Either way the card and the CPU
 take the same sample; ``jax.random``'s own draws cannot be reproduced.
+A sharded sort's ranks each draw the whole (p, s) table (from equally
+seeded generators) and keep their own row, so they take the same sample
+as :func:`bsp_sort`.
 
 Keys are int32, uint32, float32 or bfloat16 (the kernels' dtypes; the
 plain path takes the other dtypes ``torch.sort`` takes). uint32 keys are
@@ -32,7 +53,8 @@ Entry points run on the CUDA device unless the caller passes ``device``
 The stage callables live in a :class:`SortExecutor` keyed as the JAX
 package's registry is: prepare on ``SortConfig.prepare_key()`` (every rung
 of a ladder shares one prepared state), route and sort on the rung's
-config and the payload count. The port compiles nothing, so an entry
+config and the payload count, and a sharded entry on the mesh and its
+axis too. The port compiles nothing, so an entry
 holds the stage functions bound to their config, and ``trace_counts``
 counts builds: one per key, as the reference counts one trace per key.
 ``SortConfig(obs=tracer)`` records a ``prepare`` span (synchronized with
@@ -43,13 +65,13 @@ points (``repro_torch.obs``); an untraced run adds no host sync.
 ladder at the rung its history learned for the sort's shape.
 ``SortConfig(chaos=plan)`` (``repro_torch.chaos``) injects capacity faults
 at the overflow read of non-terminal rungs.
-:func:`phase_fns` gives the paper's Ph2–Ph6 as separate callables. The
-sharded runner (``bsp_sort_sharded``) is not ported yet.
+:func:`phase_fns` gives the paper's Ph2–Ph6 as separate callables.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,21 +93,21 @@ from .splitters import sample_positions
 from .types import PreparedSort, SortConfig, SortResult, resolve_device, to_device
 
 
-def _prepare_bitonic_spmd(x, cfg, values=()) -> PreparedSort:
+def _prepare_bitonic_spmd(x, cfg, values=(), procs=None) -> PreparedSort:
     """[BSI] is perfectly balanced (a single-rung ladder): nothing to carry."""
     return PreparedSort(xs=x, vals=tuple(values), splits=None)
 
 
-def _route_bitonic_spmd(prep: PreparedSort, cfg: SortConfig, positions=None):
-    return sort_bitonic_spmd(prep.xs, cfg, values=list(prep.vals))
+def _route_bitonic_spmd(prep: PreparedSort, cfg: SortConfig, positions=None, procs=None):
+    return sort_bitonic_spmd(prep.xs, cfg, values=list(prep.vals), procs=procs)
 
 
-def _route_det(prep: PreparedSort, cfg: SortConfig, positions=None):
-    return route_det_spmd(prep, cfg)
+def _route_det(prep: PreparedSort, cfg: SortConfig, positions=None, procs=None):
+    return route_det_spmd(prep, cfg, procs)
 
 
-#: algorithm -> (prepare(x, cfg, values), route(prep, cfg, positions));
-#: the sort body is route(prepare(x)).
+#: algorithm -> (prepare(x, cfg, values, procs=), route(prep, cfg,
+#: positions, procs=)); the sort body is route(prepare(x)).
 _PIPELINES = {
     "det": (prepare_det_spmd, _route_det),
     "iran": (prepare_iran_spmd, route_iran_spmd),
@@ -103,6 +125,31 @@ def _pipeline(cfg: SortConfig):
     return _PIPELINES[cfg.algorithm]
 
 
+def spmd_prepare_fn(cfg: SortConfig) -> Callable:
+    """The tier-invariant prepare stage of ``cfg``:
+    ``prepare(x, values=(), procs=None) -> PreparedSort``."""
+    cfg.validate()
+    return functools.partial(_pipeline(cfg)[0], cfg=cfg)
+
+
+def spmd_route_fn(cfg: SortConfig) -> Callable:
+    """The tier-dependent route stage of ``cfg``:
+    ``route(prep, positions=None, procs=None) -> (buf, vbufs, count, overflow)``."""
+    cfg.validate()
+    return functools.partial(_pipeline(cfg)[1], cfg=cfg)
+
+
+def spmd_sort_fn(cfg: SortConfig) -> Callable:
+    """The per-processor sort body of ``cfg``, route after prepare:
+    ``sort(x, values=(), positions=None, procs=None)``."""
+    prepare, route = spmd_prepare_fn(cfg), spmd_route_fn(cfg)
+
+    def sort(x, values=(), positions=None, procs=None):
+        return route(prepare(x, values=values, procs=procs), positions=positions, procs=procs)
+
+    return sort
+
+
 def _inputs(x, values, device) -> Tuple[torch.Tensor, List[torch.Tensor], torch.dtype]:
     """Tensors on the run's device, uint32 keys biased to int32; and the
     keys' own dtype, which :func:`_result` restores."""
@@ -114,14 +161,27 @@ def _inputs(x, values, device) -> Tuple[torch.Tensor, List[torch.Tensor], torch.
     return x, [to_device(v, dev) for v in values], key_dtype
 
 
-def _config(x: torch.Tensor, cfg: Optional[SortConfig], overrides) -> SortConfig:
-    p, n_p = x.shape
+def _config(x: torch.Tensor, cfg: Optional[SortConfig], overrides, procs=None) -> SortConfig:
+    """The sort's config, checked against ``x``: a (p, n_per_proc) layout
+    of simulated processors, or this rank's (1, n_per_proc) row when
+    ``procs`` is a mesh axis's group."""
+    procs = prim.procs_or_local(procs, x.shape[0])
+    rows, n_p = x.shape
     if cfg is None:
-        cfg = SortConfig(p=p, n_per_proc=n_p, **overrides)
-    if (cfg.p, cfg.n_per_proc) != (p, n_p):
-        raise ValueError(f"config (p={cfg.p}, n_per_proc={cfg.n_per_proc}) does not match layout {tuple(x.shape)}")
+        cfg = SortConfig(p=procs.p, n_per_proc=n_p, **overrides)
+    if rows != procs.rows or (cfg.p, cfg.n_per_proc) != (procs.p, n_p):
+        raise ValueError(f"config (p={cfg.p}, n_per_proc={cfg.n_per_proc}) does not match layout {tuple(x.shape)} "
+                         f"of {procs.p} processors")
     cfg.validate()
     return cfg
+
+
+def _keyless(cfg: SortConfig) -> SortConfig:
+    """``cfg`` without its tracer and fault plan: neither is part of the
+    config's hash, and no executor key ever holds one."""
+    if cfg.obs is None and cfg.chaos is None:
+        return cfg
+    return dataclasses.replace(cfg, obs=None, chaos=None)
 
 
 def _rung_generator(cfg: SortConfig, rung: int, generator: Optional[torch.Generator]):
@@ -135,6 +195,12 @@ def _positions(cfg: SortConfig, rung: int, generator, device) -> Optional[torch.
     if cfg.algorithm not in _RANDOMIZED or cfg.route == "radix":
         return None
     return sample_positions(cfg, _rung_generator(cfg, rung, generator), device)
+
+
+def _own_positions(procs, cfg: SortConfig, rung: int, generator, device) -> Optional[torch.Tensor]:
+    """The rows of rung ``rung``'s (p, s) sample table that ``procs`` holds."""
+    pos = _positions(cfg, rung, generator, device)
+    return None if pos is None else procs.own_rows(pos)
 
 
 def _result(buf, vbufs, count, overflow, key_dtype) -> Tuple[SortResult, List[torch.Tensor]]:
@@ -158,6 +224,39 @@ def bsp_sort(
     prepare, route = _pipeline(cfg)
     out = route(prepare(x, cfg, values), cfg, _positions(cfg, 0, generator, x.device))
     return _result(*out, key_dtype)
+
+
+def _rank_device(x) -> torch.device:
+    """The device of a sharded sort's row: this rank's."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"a sharded sort takes this rank's row as a tensor on its device, not {type(x).__name__}")
+    return x.device
+
+
+def bsp_sort_sharded(
+    x,
+    mesh,
+    mesh_axis: str,
+    cfg: Optional[SortConfig] = None,
+    *,
+    values: Sequence = (),
+    generator: Optional[torch.Generator] = None,
+    executor: Optional["SortExecutor"] = None,
+    **overrides,
+) -> Tuple[SortResult, List[torch.Tensor]]:
+    """Sort with one processor per rank of ``mesh_axis`` (one tier).
+
+    ``x`` is this rank's own (1, n_per_proc) row, on its device; the
+    result is its own row of :func:`bsp_sort`'s. Every rank of the axis
+    calls this together. The callable comes from the executor registry,
+    so repeated calls on one mesh and config build it once.
+    """
+    procs = prim.GroupProcs.from_mesh(mesh, mesh_axis)
+    x, values, key_dtype = _inputs(x, values, _rank_device(x))
+    cfg = _keyless(_config(x, cfg, overrides, procs))
+    ex = executor if executor is not None else _EXECUTOR
+    run = ex.sort_sharded(cfg, mesh, mesh_axis, len(values))
+    return _result(*run(x, _own_positions(procs, cfg, 0, generator, x.device), *values), key_dtype)
 
 
 # ------------------------------------------------- overflow-safe drivers
@@ -216,12 +315,14 @@ class SortExecutor:
     * ``route``/``sort`` entries key on the rung's full config (a frozen
       dataclass; ``obs`` is not part of its hash) and the payload count.
 
-    The keys' second element names the simulated-processor runner
-    (``"vmap"`` in the JAX package, kept so both packages' keys read
-    alike). ``trace_counts[key]`` counts the builds of each entry, so
-    "one per key" is the reuse invariant here as it is there. An entry is
-    where a captured CUDA graph per rung would live. The sharded runner's
-    entries (``prepare_sharded`` etc.) are not ported yet.
+    The keys' second element names the runner: ``"vmap"`` for the
+    simulated processors (the JAX package's name, kept so both packages'
+    keys read alike), ``"sharded"`` for one processor per rank of a mesh
+    axis, whose keys end in ``(mesh, mesh_axis)``: two meshes over the same
+    ranks in other orders get entries of their own. ``trace_counts[key]``
+    counts the builds of each entry, so "one per key" is the reuse
+    invariant here as it is there. An entry is where a captured CUDA graph
+    per rung would live.
     """
 
     def __init__(self) -> None:
@@ -263,6 +364,36 @@ class SortExecutor:
             return lambda x, positions, *vals: route(prepare(x, cfg, list(vals)), cfg, positions)
 
         return self._get(("sort", "vmap", cfg, n_values), build)
+
+    # ---------------------------------------------------- sharded runner
+    def prepare_sharded(self, cfg: SortConfig, mesh, mesh_axis: str, n_values: int) -> Callable:
+        """``run(x, *vals) -> PreparedSort`` of this rank's (1, n_per_proc) row."""
+        pcfg = cfg.prepare_key()
+
+        def build():
+            prepare, procs = spmd_prepare_fn(pcfg), prim.GroupProcs.from_mesh(mesh, mesh_axis)
+            return lambda x, *vals: prepare(x, values=list(vals), procs=procs)
+
+        return self._get(("prepare", "sharded", pcfg, n_values, mesh, mesh_axis), build)
+
+    def route_sharded(self, tier_cfg: SortConfig, mesh, mesh_axis: str, n_values: int) -> Callable:
+        """``run(prep, positions)`` of a rung on this rank; ``positions`` is
+        the rank's (1, s) row of the rung's sample, or None."""
+
+        def build():
+            route, procs = spmd_route_fn(tier_cfg), prim.GroupProcs.from_mesh(mesh, mesh_axis)
+            return lambda prep, positions: route(prep, positions=positions, procs=procs)
+
+        return self._get(("route", "sharded", tier_cfg, n_values, mesh, mesh_axis), build)
+
+    def sort_sharded(self, cfg: SortConfig, mesh, mesh_axis: str, n_values: int) -> Callable:
+        """``run(x, positions, *vals)``: the whole sort of this rank's row."""
+
+        def build():
+            sort, procs = spmd_sort_fn(cfg), prim.GroupProcs.from_mesh(mesh, mesh_axis)
+            return lambda x, positions, *vals: sort(x, values=list(vals), positions=positions, procs=procs)
+
+        return self._get(("sort", "sharded", cfg, n_values, mesh, mesh_axis), build)
 
 
 #: process-wide default registry; drivers take ``executor=`` for isolation.
@@ -431,19 +562,29 @@ def _host_keys(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
-def _trace_prepared(tracer, meta: Dict, cfg: SortConfig, prep: PreparedSort) -> None:
+def _gathered_bounds(procs, bounds: np.ndarray, device) -> np.ndarray:
+    """Every processor's (p+1,) boundaries, (p, p+1), from the host rows
+    ``bounds`` this group holds (the bookkeeping gather of a sharded sort)."""
+    if procs is None or procs.local:
+        return bounds
+    return procs.gather_rows(torch.from_numpy(bounds).to(device)).cpu().numpy()
+
+
+def _trace_prepared(tracer, meta: Dict, cfg: SortConfig, prep: PreparedSort, procs=None) -> None:
     """Record the prepared distribution snapshot (traced runs only).
 
     ``route="radix"``: the counted boundaries give the exact per-(src, dst)
     send counts of the coming h-relation. ``det``: the splitters are in
     hand, and searching each run for them gives the splitter-implied
     boundary estimate (tag-blind) and the oversampling skew. iran/ran draw
-    their sample in the route stage, so nothing is prepared to read.
+    their sample in the route stage, so nothing is prepared to read. A
+    sharded sort's ranks gather every processor's boundaries, so each
+    records the whole h-relation.
     """
     tid, cat = meta["tid"], meta.get("cat", "sort")
     row_bytes = int(meta.get("row_bytes", 4))
     if cfg.route == "radix" and prep.splits is not None:
-        sendc = host_send_counts(prep.splits[0])  # (p, p) exact counts
+        sendc = host_send_counts(prim.procs_or_local(procs, cfg.p).gather_rows(prep.splits[0]))  # (p, p) exact
         recv = sendc.sum(axis=0)
         args = dict(
             kind="radix_counts",
@@ -457,14 +598,12 @@ def _trace_prepared(tracer, meta: Dict, cfg: SortConfig, prep: PreparedSort) -> 
         tracer.point("distribution", cat=cat, tid=tid, **args)
     elif cfg.algorithm == "det" and cfg.route == "sample" and prep.splits:
         keys = _host_keys(prep.splits[0][0])  # replicated (p-1,) splitter keys
-        xs = _host_keys(prep.xs)  # (p, n_per_proc), locally sorted
+        xs = _host_keys(prep.xs)  # (rows, n_per_proc), locally sorted
         bounds = np.stack([np.searchsorted(row, keys) for row in xs])
-        sendc = np.diff(
-            np.concatenate(
-                [np.zeros((cfg.p, 1), np.int64), bounds, np.full((cfg.p, 1), xs.shape[1], np.int64)], axis=1
-            ),
-            axis=1,
-        )
+        rows = xs.shape[0]
+        bounds = np.concatenate(
+            [np.zeros((rows, 1), np.int64), bounds, np.full((rows, 1), xs.shape[1], np.int64)], axis=1)
+        sendc = np.diff(_gathered_bounds(procs, bounds, prep.xs.device), axis=1)
         recv = sendc.sum(axis=0)
         args = dict(
             kind="splitter_estimate",
@@ -480,7 +619,7 @@ def _trace_prepared(tracer, meta: Dict, cfg: SortConfig, prep: PreparedSort) -> 
         tracer.point("distribution", cat=cat, tid=tid, **args)
 
 
-def _radix_exact_ladder(cfg: SortConfig, prep: PreparedSort) -> tuple:
+def _radix_exact_ladder(cfg: SortConfig, prep: PreparedSort, procs=None) -> tuple:
     """The radix route's whole ladder: ONE rung at the host-counted capacity.
 
     ``prep.splits[0]`` holds the counted (p, p+1) boundaries, so the true
@@ -488,9 +627,12 @@ def _radix_exact_ladder(cfg: SortConfig, prep: PreparedSort) -> tuple:
     data moves (a (p, p+1) int32 host read). Both are rounded up on a
     relative 1/16 grid (``step`` = the top four bits of the count) and
     clamped to the exact-tier sizes; the capacity then covers every pair,
-    so the rung cannot overflow. The JAX package's sizing, unchanged.
+    so the rung cannot overflow. The JAX package's sizing, unchanged. A
+    sharded sort gathers every rank's boundaries first, so all ranks size
+    the same rung.
     """
-    sendc = host_send_counts(prep.splits[0])  # counts[src, dst]
+    bounds = prim.procs_or_local(procs, cfg.p).gather_rows(prep.splits[0])
+    sendc = host_send_counts(bounds)  # counts[src, dst]
     pair_true = int(sendc.max())
     recv_true = int(sendc.sum(axis=0).max())
 
@@ -507,6 +649,86 @@ def _radix_exact_ladder(cfg: SortConfig, prep: PreparedSort) -> tuple:
         n_max_override=_quant(recv_true, cfg.n),
     )
     return (("radix", tier),)
+
+
+def _safe_launch(
+    x, cfg: Optional[SortConfig], overrides, *, values: Sequence, stats: Optional[TierStats], generator,
+    device, executor: Optional[SortExecutor], resume: bool, planner, scope: Optional[Callable],
+    mesh=None, mesh_axis: Optional[str] = None,
+) -> InFlightSort:
+    """The overflow-safe drivers' one launch: prepare once, enqueue the
+    first rung. With ``mesh`` the processors are the ranks of ``mesh_axis``
+    and ``x`` is this rank's row: the stages come from the executor's
+    sharded entries and each rung takes this rank's row of the sample."""
+    procs = None if mesh is None else prim.GroupProcs.from_mesh(mesh, mesh_axis)
+    x, values, key_dtype = _inputs(x, values, device if procs is None else _rank_device(x))
+    cfg = _config(x, cfg, overrides, procs)
+    tracer = resolve_tracer(cfg.obs)
+    # a fault plan drives the simulated processors only; the sharded
+    # driver drops it, as the JAX package's does
+    chaos = resolve_chaos(cfg.chaos) if procs is None else None
+    # the tracer and the fault plan stay locals: the ladder and the
+    # executor see neither
+    cfg = _keyless(cfg)
+    procs = prim.procs_or_local(procs, cfg.p)
+    meta = _trace_meta_for(tracer, x, values)
+    ex = executor if executor is not None else _EXECUTOR
+    if mesh is None:
+        prepare_stage, route_stage, sort_stage = ex.prepare_vmap, ex.route_vmap, ex.sort_vmap
+        keys = (len(values),)
+    else:
+        prepare_stage, route_stage, sort_stage = ex.prepare_sharded, ex.route_sharded, ex.sort_sharded
+        keys = (mesh, mesh_axis, len(values))
+
+    ladder = cfg.tier_ladder()
+    bucket = None
+    if planner is not None and len(ladder) > 1:
+        bucket = f"sort/{cfg.algorithm}/p{cfg.p}/npp{cfg.n_per_proc}/{cfg.pair_capacity}"
+        ladder = ladder[planner.rung_for(bucket, len(ladder)) :]
+    stats = stats if stats is not None else TierStats()
+    retries_before = stats.retries
+
+    on_complete = None
+    if bucket is not None:
+        n_rungs = len(cfg.tier_ladder())
+
+        def on_complete(st: TierStats, _bucket=bucket) -> None:
+            planner.observe(_bucket, st.retries > retries_before, n_rungs)
+
+    enter = scope if scope is not None else contextlib.nullcontext
+    if not resume:
+
+        def run_tier(tier_cfg: SortConfig, rung: int):
+            positions = _own_positions(procs, tier_cfg, rung, generator, x.device)
+            return _result(*sort_stage(tier_cfg, *keys)(x, positions, *values), key_dtype)
+
+    else:
+        if tracer is not None:
+            # a traced run waits for the device at the stage boundary, so the
+            # prepare span includes the device's time and the route spans
+            # start clean; an untraced run stays asynchronous
+            with tracer.span("prepare", tid=meta["tid"], algorithm=cfg.algorithm, route=cfg.route,
+                             p=cfg.p, n_per_proc=cfg.n_per_proc):
+                with enter():
+                    prep = prepare_stage(cfg, *keys)(x, *values)
+                if x.device.type == "cuda":
+                    torch.cuda.synchronize(x.device)
+            _trace_prepared(tracer, meta, cfg, prep, procs)
+        else:
+            with enter():
+                prep = prepare_stage(cfg, *keys)(x, *values)
+        if cfg.route == "radix":
+            # the counts are in hand: one rung sized to the true maxima
+            if tracer is not None:
+                tracer.point("host_sync", tid=meta["tid"], what="radix_counts")
+            ladder = _radix_exact_ladder(cfg, prep, procs)
+
+        def run_tier(tier_cfg: SortConfig, rung: int):
+            positions = _own_positions(procs, tier_cfg, rung, generator, x.device)
+            return _result(*route_stage(tier_cfg, *keys)(prep, positions), key_dtype)
+
+    return InFlightSort(ladder, stats, run_tier, scope=scope, on_complete=on_complete, tracer=tracer,
+                        trace_meta=meta, chaos=chaos)
 
 
 def bsp_sort_safe_launch(
@@ -533,69 +755,8 @@ def bsp_sort_safe_launch(
     interoperate) and is told on completion whether the start faulted.
     ``scope`` is a context factory entered around every device launch.
     """
-    x, values, key_dtype = _inputs(x, values, device)
-    cfg = _config(x, cfg, overrides)
-    tracer = resolve_tracer(cfg.obs)
-    chaos = resolve_chaos(cfg.chaos)
-    if cfg.obs is not None or cfg.chaos is not None:
-        # the tracer and the fault plan stay locals: the ladder and the
-        # executor see obs=None and chaos=None (neither is part of the
-        # config's hash anyway), so no registry key ever holds one
-        cfg = dataclasses.replace(cfg, obs=None, chaos=None)
-    meta = _trace_meta_for(tracer, x, values)
-    ex = executor if executor is not None else _EXECUTOR
-    nv = len(values)
-    p, n_p = x.shape
-
-    ladder = cfg.tier_ladder()
-    bucket = None
-    if planner is not None and len(ladder) > 1:
-        bucket = f"sort/{cfg.algorithm}/p{p}/npp{n_p}/{cfg.pair_capacity}"
-        ladder = ladder[planner.rung_for(bucket, len(ladder)) :]
-    stats = stats if stats is not None else TierStats()
-    retries_before = stats.retries
-
-    on_complete = None
-    if bucket is not None:
-        n_rungs = len(cfg.tier_ladder())
-
-        def on_complete(st: TierStats, _bucket=bucket) -> None:
-            planner.observe(_bucket, st.retries > retries_before, n_rungs)
-
-    enter = scope if scope is not None else contextlib.nullcontext
-    if not resume:
-
-        def run_tier(tier_cfg: SortConfig, rung: int):
-            positions = _positions(tier_cfg, rung, generator, x.device)
-            return _result(*ex.sort_vmap(tier_cfg, nv)(x, positions, *values), key_dtype)
-
-    else:
-        if tracer is not None:
-            # a traced run waits for the device at the stage boundary, so the
-            # prepare span includes the device's time and the route spans
-            # start clean; an untraced run stays asynchronous
-            with tracer.span("prepare", tid=meta["tid"], algorithm=cfg.algorithm, route=cfg.route,
-                             p=p, n_per_proc=n_p):
-                with enter():
-                    prep = ex.prepare_vmap(cfg, nv)(x, *values)
-                if x.device.type == "cuda":
-                    torch.cuda.synchronize(x.device)
-            _trace_prepared(tracer, meta, cfg, prep)
-        else:
-            with enter():
-                prep = ex.prepare_vmap(cfg, nv)(x, *values)
-        if cfg.route == "radix":
-            # the counts are in hand: one rung sized to the true maxima
-            if tracer is not None:
-                tracer.point("host_sync", tid=meta["tid"], what="radix_counts")
-            ladder = _radix_exact_ladder(cfg, prep)
-
-        def run_tier(tier_cfg: SortConfig, rung: int):
-            positions = _positions(tier_cfg, rung, generator, x.device)
-            return _result(*ex.route_vmap(tier_cfg, nv)(prep, positions), key_dtype)
-
-    return InFlightSort(ladder, stats, run_tier, scope=scope, on_complete=on_complete, tracer=tracer,
-                        trace_meta=meta, chaos=chaos)
+    return _safe_launch(x, cfg, overrides, values=values, stats=stats, generator=generator, device=device,
+                        executor=executor, resume=resume, planner=planner, scope=scope)
 
 
 def bsp_sort_safe(
@@ -621,6 +782,36 @@ def bsp_sort_safe(
         x, cfg, values=values, stats=stats, generator=generator, device=device, executor=executor,
         resume=resume, planner=planner, scope=scope, **overrides,
     ).wait()
+
+
+def bsp_sort_sharded_safe(
+    x,
+    mesh,
+    mesh_axis: str,
+    cfg: Optional[SortConfig] = None,
+    *,
+    values: Sequence = (),
+    stats: Optional[TierStats] = None,
+    generator: Optional[torch.Generator] = None,
+    executor: Optional[SortExecutor] = None,
+    resume: bool = True,
+    **overrides,
+) -> Tuple[SortResult, List[torch.Tensor], TierStats]:
+    """Overflow-safe :func:`bsp_sort_sharded`: the resumable escalation of
+    :func:`bsp_sort_safe` with one processor per rank of ``mesh_axis``.
+
+    Every rank calls it with its own (1, n_per_proc) row and gets its own
+    row back. Each rung's overflow flag is the group's ``any``, so every
+    rank reads the same decision and all climb the ladder together. The
+    prepare and route callables come from the executor's sharded entries:
+    one ``prepare`` for every rung, none built again on a second call.
+    ``SortConfig(obs=tracer)`` records the prepare span and the route
+    spans as :func:`bsp_sort_safe` does, the rung's counts being this
+    rank's; a fault plan (``chaos``) is dropped, as in the JAX package.
+    """
+    return _safe_launch(x, cfg, overrides, values=values, stats=stats, generator=generator, device=None,
+                        executor=executor, resume=resume, planner=None, scope=None, mesh=mesh,
+                        mesh_axis=mesh_axis).wait()
 
 
 def gathered_output(result: SortResult) -> torch.Tensor:

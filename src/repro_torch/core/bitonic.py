@@ -26,18 +26,19 @@ def _compare_split(xs: torch.Tensor, other: torch.Tensor, keep_low: torch.Tensor
 
 
 def sort_bitonic_spmd(
-    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = ()
+    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = (), procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
     if values:
         raise NotImplementedError("[BSI] baseline is key-only")
-    p, n_p = x.shape
-    me = prim.proc_id(p, x.device)
+    rows, n_p = x.shape
+    procs = prim.procs_or_local(procs, cfg.p)
+    me = procs.proc_id(x.device)
     xs, _ = local_sort(x, cfg.local_sort)
-    for i in range(int(math.log2(p))):
+    for i in range(int(math.log2(cfg.p))):
         for j in range(i, -1, -1):
-            other = prim.exchange_with(xs, 1 << j)
+            other = procs.exchange_with(xs, 1 << j)
             up = ((me >> (i + 1)) & 1) == 0
             lower_half = ((me >> j) & 1) == 0
             xs = _compare_split(xs, other, (up == lower_half)[:, None])
-    count = torch.full((p,), n_p, dtype=torch.int32, device=x.device)
-    return xs, [], count, torch.zeros((p,), dtype=torch.bool, device=x.device)
+    count = torch.full((rows,), n_p, dtype=torch.int32, device=x.device)
+    return xs, [], count, torch.zeros((rows,), dtype=torch.bool, device=x.device)

@@ -1,16 +1,30 @@
-"""BSP primitives (paper §4) over an explicit leading processor dimension.
+"""BSP primitives (paper §4): the processors and their collectives.
 
 The JAX package runs one per-processor body under a named axis and
-expresses Ph3–Ph5's supersteps as collectives. Here every tensor carries
-the processor as dimension 0 and each collective is a tensor operation:
+expresses Ph3–Ph5's supersteps as collectives over it. Here a *processor
+group* stands where that axis name stands, and every stage function takes
+one (``procs=``; ``None`` is :class:`LocalProcs` over ``cfg.p``):
 
-* ``all_to_all`` — a transpose of ``(p_src, p_dst, ...)``;
-* ``all_gather`` — a broadcast (every processor sees every row);
-* ``pmax`` / ``psum`` — reductions over dimension 0 (``.any()``, ``.sum()``);
-* ``proc_id`` — ``torch.arange(p)``;
-* ``exchange_with`` — the pairwise XOR-partner ``ppermute`` of a bitonic
-  compare-split step, a row permutation;
-* ``ppermute_shift`` — the ring's rotation, a roll along the processors.
+* :class:`LocalProcs` — p simulated processors in one process. Every
+  tensor carries the processor as dimension 0 and each collective is a
+  tensor operation: ``all_to_all`` a transpose, ``all_gather`` a
+  broadcast, ``any``/``max``/``min`` reductions over dimension 0,
+  ``exchange_with`` a row permutation, ``ppermute_shift`` a roll.
+* :class:`GroupProcs` — one processor per rank of a ``torch.distributed``
+  process group (a mesh axis): every tensor holds the rank's own row
+  (dimension 0 of size 1) and each collective is one ``torch.distributed``
+  call on the group. The permutations are one ``all_to_all_single`` with
+  one non-zero split each way (gloo's ``send``/``recv`` take host tensors
+  only; ``all_to_all_single`` takes the card's tensors on gloo and NCCL).
+  The data collectives move int32, int64 and uint8 tensors only: other
+  dtypes travel as their bytes, since the backends do not all move bool,
+  uint32 and bfloat16 alike. The reductions reduce flags and extremes as
+  int32 or int64, and :meth:`GroupProcs.all_reduce` sums in float32 or
+  int64.
+
+``rows`` is the number of processors a tensor holds (p, or 1), ``p`` the
+number of processors in all; a stage function shapes its tensors by the
+first and its bucket count by the second.
 
 The JAX package orders float keys with XLA's sort comparator: ``-0.0``
 equals ``+0.0`` and every NaN is equal and above ``+inf``. :func:`sort_key`
@@ -21,39 +35,240 @@ gives that order as integers; :func:`stable_sort` sorts by it (on the card
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 
-def proc_id(p: int, device) -> torch.Tensor:
-    return torch.arange(p, dtype=torch.int32, device=device)
+class LocalProcs:
+    """p simulated processors, dimension 0 of every tensor (one process)."""
+
+    local = True
+
+    def __init__(self, p: int) -> None:
+        self.p = self.rows = p
+
+    @property
+    def nprocs(self) -> int:
+        return self.p
+
+    def proc_id(self, device) -> torch.Tensor:
+        """(rows,) int32 processor index of every row."""
+        return torch.arange(self.p, dtype=torch.int32, device=device)
+
+    def own_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The rows of a (p, ...) table that this group holds."""
+        return t
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Deliver row ``[src, dst]`` to processor ``dst``: ``(p_dst, p_src, ...)``."""
+        return x.transpose(0, 1).contiguous()
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every processor receives every row: ``(rows, ...) -> (rows, p, ...)``."""
+        return x.unsqueeze(0).expand(x.shape[0], *x.shape)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every processor's row, ``(p, ...)``, as one replicated tensor."""
+        return x
+
+    def any(self, flags: torch.Tensor) -> torch.Tensor:
+        """0-d bool: any flag of any processor (the ``pmax`` of a flag)."""
+        return flags.any()
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """0-d: the largest element over every processor (``pmax``)."""
+        return x.max()
+
+    def min(self, x: torch.Tensor) -> torch.Tensor:
+        """0-d: the smallest element over every processor (``pmin``)."""
+        return x.min()
+
+    def broadcast_from(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Lemma 4.1's one-superstep broadcast: every row takes row ``src``."""
+        return x[src : src + 1].expand_as(x)
+
+    def prefix_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        """Lemma 4.2's parallel prefixes: (rows, m) counts -> the sums of the
+        counts of the lower-ranked processors, one superstep."""
+        return torch.cumsum(counts, dim=0, dtype=counts.dtype) - counts
+
+    def exchange_with(self, x, partner_xor: int):
+        """Row ``k`` receives row ``k ^ partner_xor`` (a tuple maps elementwise)."""
+        if isinstance(x, (tuple, list)):
+            return type(x)(self.exchange_with(v, partner_xor) for v in x)
+        perm = torch.arange(x.shape[0], device=x.device) ^ partner_xor
+        return x[perm]
+
+    def ppermute_shift(self, x, shift: int = 1):
+        """Row ``k`` receives row ``k - shift`` (mod p): processor i sends to
+        i + shift around the ring. A tuple or list maps elementwise."""
+        if isinstance(x, (tuple, list)):
+            return type(x)(self.ppermute_shift(v, shift) for v in x)
+        return torch.roll(x, shifts=shift, dims=0)
 
 
-def all_to_all(x: torch.Tensor) -> torch.Tensor:
-    """Deliver row ``[src, dst]`` to processor ``dst``: ``(p_dst, p_src, ...)``."""
-    return x.transpose(0, 1).contiguous()
+def procs_or_local(procs, p: int):
+    """``procs``, or p simulated processors when it is None."""
+    return LocalProcs(p) if procs is None else procs
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every processor receives every row: ``(p, ...) -> (p, p, ...)`` view."""
-    return x.unsqueeze(0).expand(x.shape[0], *x.shape)
+#: dtypes that go on the wire as they are; every other dtype goes as bytes
+_WIRE = (torch.int32, torch.int64, torch.uint8)
 
 
-def exchange_with(x, partner_xor: int):
-    """Row ``k`` receives row ``k ^ partner_xor`` (a tuple maps elementwise)."""
-    if isinstance(x, (tuple, list)):
-        return type(x)(exchange_with(v, partner_xor) for v in x)
-    perm = torch.arange(x.shape[0], device=x.device) ^ partner_xor
-    return x[perm]
+def _to_wire(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (leading dimension kept) in a wire dtype: its bytes otherwise."""
+    t = t.contiguous()
+    if t.dtype in _WIRE:
+        return t
+    flat = t.reshape(t.shape[0], -1)
+    if flat.stride(-1) != 1:  # a size-1 dimension may keep any stride
+        flat = torch.empty(flat.shape, dtype=flat.dtype, device=flat.device).copy_(flat)
+    return flat.view(torch.uint8)
 
 
-def ppermute_shift(x, shift: int = 1):
-    """Row ``k`` receives row ``k - shift`` (mod p): processor i sends to
-    i + shift around the ring. A tuple or list maps elementwise."""
-    if isinstance(x, (tuple, list)):
-        return type(x)(ppermute_shift(v, shift) for v in x)
-    return torch.roll(x, shifts=shift, dims=0)
+def _from_wire(w: torch.Tensor, dtype: torch.dtype, shape) -> torch.Tensor:
+    return (w if dtype in _WIRE else w.view(dtype)).reshape(shape)
+
+
+class GroupProcs:
+    """One processor per rank of a ``torch.distributed`` group.
+
+    ``ranks[k]`` is the global rank that holds processor k (the mesh's
+    order along its axis) and ``index`` this rank's processor. A group's
+    own ranks are numbered in sorted order, which need not be the mesh's,
+    so every collective lays its chunks out in group order on the way in
+    and back in processor order on the way out. Tensors stay on the
+    device they are on: on the card, gloo stages them through the host
+    itself and NCCL moves them between cards.
+    """
+
+    local = False
+    rows = 1
+
+    def __init__(self, group, ranks: Sequence[int], index: int) -> None:
+        self.group = group
+        self.ranks = tuple(int(r) for r in ranks)
+        self.p = len(self.ranks)
+        self.index = int(index)
+        #: group rank of processor k
+        self._order = [dist.get_group_rank(group, r) for r in self.ranks]
+        self._inverse: Optional[List[int]] = None
+        if self._order != list(range(self.p)):
+            self._inverse = [0] * self.p
+            for k, g in enumerate(self._order):
+                self._inverse[g] = k
+
+    @classmethod
+    def from_mesh(cls, mesh, axis: str) -> "GroupProcs":
+        """The processors along ``axis`` of a ``DeviceMesh`` through this rank."""
+        dim = mesh.mesh_dim_names.index(axis)
+        coord = mesh.get_coordinate()
+        line = tuple(slice(None) if d == dim else c for d, c in enumerate(coord))
+        return cls(mesh.get_group(axis), mesh.mesh[line].tolist(), coord[dim])
+
+    @property
+    def nprocs(self) -> int:
+        return self.p
+
+    def proc_id(self, device) -> torch.Tensor:
+        return torch.full((1,), self.index, dtype=torch.int32, device=device)
+
+    def own_rows(self, t: torch.Tensor) -> torch.Tensor:
+        return t[self.index : self.index + 1]
+
+    # chunks by processor <-> chunks by group rank (identity on most meshes)
+    def _by_group(self, t: torch.Tensor) -> torch.Tensor:
+        if self._inverse is None:
+            return t
+        return t[torch.tensor(self._inverse, device=t.device)]
+
+    def _by_proc(self, t: torch.Tensor) -> torch.Tensor:
+        if self._inverse is None:
+            return t
+        return t[torch.tensor(self._order, device=t.device)]
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """(1, p, ...): chunk j goes to processor j; chunk j of the result
+        came from processor j."""
+        send = self._by_group(_to_wire(x[0]))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        return _from_wire(self._by_proc(recv), x.dtype, x.shape)
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """(1, ...) -> (p, ...): every processor's row, on every rank."""
+        w = _to_wire(x)
+        parts = [torch.empty_like(w) for _ in range(self.p)]
+        dist.all_gather(parts, w, group=self.group)
+        return _from_wire(self._by_proc(torch.cat(parts)), x.dtype, (self.p,) + tuple(x.shape[1:]))
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        return self.gather_rows(x).unsqueeze(0)
+
+    def _reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        t = t.reshape(1).clone()
+        dist.all_reduce(t, op=op, group=self.group)
+        return t[0]
+
+    def any(self, flags: torch.Tensor) -> torch.Tensor:
+        return self._reduce(flags.any().to(torch.int32), dist.ReduceOp.MAX) > 0
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(_integer(x.max()), dist.ReduceOp.MAX)
+
+    def min(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(_integer(x.min()), dist.ReduceOp.MIN)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``psum`` of a tensor over the group. Floats sum in float32
+        (bfloat16 rounds once, after the sum), integers as int64."""
+        wire = torch.float32 if x.is_floating_point() else torch.int64
+        t = x.to(wire).contiguous().clone()
+        dist.all_reduce(t, group=self.group)
+        return t.to(x.dtype)
+
+    def broadcast_from(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        w = _to_wire(x).clone()
+        dist.broadcast(w, src=self.ranks[src], group=self.group)
+        return _from_wire(w, x.dtype, x.shape)
+
+    def prefix_counts(self, counts: torch.Tensor) -> torch.Tensor:
+        every = self.gather_rows(counts)
+        return every[: self.index].sum(dim=0, keepdim=True, dtype=counts.dtype)
+
+    def _permute(self, x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        """Send this rank's tensor to processor ``dst``, receive ``src``'s:
+        one ``all_to_all_single`` with one non-zero split each way."""
+        w = _to_wire(x).reshape(-1)
+        send = [0] * self.p
+        recv = [0] * self.p
+        send[self._order[dst]] = recv[self._order[src]] = w.numel()
+        out = torch.empty_like(w)
+        dist.all_to_all_single(out, w, recv, send, group=self.group)
+        return _from_wire(out, x.dtype, x.shape)
+
+    def exchange_with(self, x, partner_xor: int):
+        if isinstance(x, (tuple, list)):
+            return type(x)(self.exchange_with(v, partner_xor) for v in x)
+        partner = self.index ^ partner_xor
+        return self._permute(x, partner, partner)
+
+    def ppermute_shift(self, x, shift: int = 1):
+        if isinstance(x, (tuple, list)):
+            return type(x)(self.ppermute_shift(v, shift) for v in x)
+        return self._permute(x, (self.index + shift) % self.p, (self.index - shift) % self.p)
+
+
+def _integer(t: torch.Tensor) -> torch.Tensor:
+    """A scalar in a dtype every backend reduces alike (bool -> int32)."""
+    if t.dtype in (torch.int32, torch.int64):
+        return t
+    if t.dtype == torch.bool:
+        return t.to(torch.int32)
+    raise TypeError(f"processor reductions take integer tensors, not {t.dtype}")
 
 
 def exclusive_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -20,6 +20,12 @@ whatever the payload count (on the ring, the boundary row rides in the
 same buffer); the bitcast is exact, so the result equals ``per_array``'s.
 Received rows are ordered by (source proc, local idx), which keeps the
 final merge stable.
+
+Every exchange goes through the processor group (``procs=``,
+``core/primitives.py``): a transpose or a roll over the simulated
+processors, or one ``torch.distributed`` call per superstep on a mesh
+axis. The overflow flag is the group's ``any``, so every processor reads
+the same decision.
 """
 from __future__ import annotations
 
@@ -99,9 +105,9 @@ def send_counts(boundaries: torch.Tensor) -> torch.Tensor:
     return torch.diff(boundaries, dim=-1)
 
 
-def recv_counts(counts: torch.Tensor) -> torch.Tensor:
-    """(p_dst, p_src): r[me, j] = counts[j, me] — the count bookkeeping superstep."""
-    return prim.all_to_all(counts)
+def recv_counts(counts: torch.Tensor, procs=None) -> torch.Tensor:
+    """(rows, p_src): r[me, j] = counts[j, me] — the count bookkeeping superstep."""
+    return prim.procs_or_local(procs, counts.shape[0]).all_to_all(counts)
 
 
 #: payload fill of empty slots (keys take the dtype sentinel)
@@ -119,13 +125,14 @@ def _segment_rows(
 
     rows[src, i, t] = arr[src, b[src, i] + t] for t < c[src, i], else pad.
     """
-    p, n_p = arrs[0].shape[:2]
+    nrows, n_p = arrs[0].shape[:2]
+    p = boundaries.shape[1] - 1
     t = torch.arange(width, device=boundaries.device)
-    idx = torch.clamp(boundaries[:, :-1, None] + t, 0, n_p - 1).reshape(p, -1)
+    idx = torch.clamp(boundaries[:, :-1, None] + t, 0, n_p - 1).reshape(nrows, -1)
     valid = t < counts[:, :, None]
     rows = []
     for i, a in enumerate(arrs):
-        g = prim.take_rows(a, idx).reshape((p, p, width) + a.shape[2:])
+        g = prim.take_rows(a, idx).reshape((nrows, p, width) + a.shape[2:])
         fill = key_sentinel if i == 0 else _PAYLOAD_PAD
         mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
         rows.append(torch.where(mask, g, torch.full((), fill, dtype=a.dtype, device=a.device)))
@@ -133,12 +140,22 @@ def _segment_rows(
     return rows
 
 
-def _all_to_all_rows(rows: List[torch.Tensor], cfg: SortConfig) -> List[torch.Tensor]:
-    """Deliver (p_src, p_dst, w, ...) rows: ONE fused exchange, or one per array."""
+def _all_to_all_rows(rows: List[torch.Tensor], cfg: SortConfig, procs) -> List[torch.Tensor]:
+    """Deliver (rows, p_dst, w, ...) rows: ONE fused exchange, or one per array."""
     if cfg.exchange == "fused" and len(rows) > 1:
         buf, metas = pack_bytes(rows, lead=3)
-        return unpack_bytes(prim.all_to_all(buf), metas, lead=3)
-    return [prim.all_to_all(r) for r in rows]
+        return unpack_bytes(procs.all_to_all(buf), metas, lead=3)
+    return [procs.all_to_all(r) for r in rows]
+
+
+def _all_gather_runs(arrs: List[torch.Tensor], cfg: SortConfig, procs) -> List[torch.Tensor]:
+    """Every processor's whole run of every array, (rows, p, n_p, ...): ONE
+    fused gather on a process group. Over simulated processors the gather
+    is a broadcast view, which packing would only copy."""
+    if cfg.exchange == "fused" and len(arrs) > 1 and not procs.local:
+        buf, metas = pack_bytes(arrs, lead=1)
+        return unpack_bytes(procs.all_gather(buf), metas, lead=2)
+    return [procs.all_gather(a) for a in arrs]
 
 
 def recv_rows(
@@ -146,43 +163,46 @@ def recv_rows(
     boundaries: torch.Tensor,
     cfg: SortConfig,
     values: Sequence[torch.Tensor] = (),
+    procs=None,
 ) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Deliver bucket ``me`` of every source to every processor ``me``.
 
-    Returns ``(rows, rcounts, overflow)``: rows[a] is (p_me, p_src, width,
-    ...), row j the sorted padded run received from source j; rcounts
-    (p_me, p_src) int32 its valid lengths; overflow (p,) bool, replicated.
-    Width = pair_cap (a2a_dense) or n_p (allgather).
+    Returns ``(rows, rcounts, overflow)``: rows[a] is (rows_me, p_src,
+    width, ...), row j the sorted padded run received from source j;
+    rcounts (rows_me, p_src) int32 its valid lengths; overflow (rows,)
+    bool, replicated. Width = pair_cap (a2a_dense) or n_p (allgather).
     """
-    p, n_p = x_sorted.shape
+    nrows, n_p = x_sorted.shape
+    procs = prim.procs_or_local(procs, cfg.p)
     sent = sentinel_for(x_sorted.dtype)
     counts = send_counts(boundaries)
     arrs = [x_sorted, *values]
 
     if cfg.routing == "a2a_dense":
-        rcounts = recv_counts(counts)
+        rcounts = recv_counts(counts, procs)
         over = (counts > cfg.pair_cap).any(dim=1) | (rcounts.sum(dim=1) > cfg.n_max)
         rows = _segment_rows(arrs, boundaries, counts, cfg.pair_cap, sent)
-        return _all_to_all_rows(rows, cfg), rcounts, over.any().expand(p)
+        return _all_to_all_rows(rows, cfg, procs), rcounts, procs.any(over).expand(nrows)
 
     if cfg.routing == "allgather":
-        # every processor sees all boundaries (the bookkeeping gather) and
+        # every processor sees all boundaries (the bookkeeping exchange) and
         # all runs (the data gather), then slices bucket ``me`` of each
-        starts = boundaries[:, :-1].transpose(0, 1)  # (p_me, p_src)
-        rcounts = recv_counts(counts)
+        starts = procs.all_to_all(boundaries[:, :-1])  # (rows_me, p_src)
+        rcounts = recv_counts(counts, procs)
         t = torch.arange(n_p, device=x_sorted.device)
-        idx = torch.clamp(starts[:, :, None] + t, 0, n_p - 1)  # (p_me, p_src, n_p)
+        idx = torch.clamp(starts[:, :, None] + t, 0, n_p - 1)  # (rows_me, p_src, n_p)
         valid = t < rcounts[:, :, None]
-        src = torch.arange(p, device=x_sorted.device)[None, :, None]
+        src = torch.arange(cfg.p, device=x_sorted.device)[None, :, None]
+        me = torch.arange(nrows, device=x_sorted.device)[:, None, None]
         rows = []
-        for i, a in enumerate(arrs):
-            g = prim.all_gather(a)[torch.arange(p, device=a.device)[:, None, None], src, idx.long()]
+        for i, (a, every) in enumerate(zip(arrs, _all_gather_runs(arrs, cfg, procs))):
+            g = every[me, src, idx.long()]
             fill = sent if i == 0 else _PAYLOAD_PAD
             mask = valid.reshape(valid.shape + (1,) * (g.ndim - 3))
             rows.append(torch.where(mask, g, torch.full((), fill, dtype=a.dtype, device=a.device)))
         rows[0] = prim.canonical_nans(rows[0])
         over = rcounts.sum(dim=1) > cfg.n_max
-        return rows, rcounts, over.any().expand(p)
+        return rows, rcounts, procs.any(over).expand(nrows)
 
     raise ValueError(f"recv_rows: unsupported routing {cfg.routing!r}")
 
@@ -220,18 +240,20 @@ def route(
     boundaries: torch.Tensor,
     cfg: SortConfig,
     values: Sequence[torch.Tensor] = (),
+    procs=None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Route bucket i of every processor to processor i, compacted by source.
 
-    Returns ``(buf, value_bufs, count, overflow)``: (p, n_max) receive
-    buffers ordered by (src, idx), (p,) valid lengths (int32; int64 for
-    int64 keys), (p,) flags.
+    Returns ``(buf, value_bufs, count, overflow)``: (rows, n_max) receive
+    buffers ordered by (src, idx), (rows,) valid lengths (int32; int64 for
+    int64 keys), (rows,) flags.
     """
+    procs = prim.procs_or_local(procs, cfg.p)
     sent = sentinel_for(x_sorted.dtype)
     cap = cfg.n_max
     if cfg.routing == "ring":
-        return _route_ring(x_sorted, boundaries, cfg, values, sent)
-    rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
+        return _route_ring(x_sorted, boundaries, cfg, values, sent, procs)
+    rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values, procs)
     out = compact_rows(rows, rcounts, cap, sent)
     total = torch.clamp(_received_total(rcounts, x_sorted), max=cap)
     return out[0], out[1:], total, overflow
@@ -259,6 +281,7 @@ def route_and_merge(
     boundaries: torch.Tensor,
     cfg: SortConfig,
     values: Sequence[torch.Tensor] = (),
+    procs=None,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Ph5 + Ph6: route, then stable merge (``tree`` or ``sort``).
 
@@ -268,12 +291,14 @@ def route_and_merge(
     compacted buffer, not rows, so it takes the sort tail under either.
     """
     if cfg.merge == "tree" and cfg.routing != "ring":
-        rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values)
+        rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values, procs)
         cap = cfg.n_max
         has_nan = None
         if cfg.merge_backend == "pallas" and not values and x_sorted.is_floating_point():
             # one device flag for the whole tree, from the keys as they enter
-            # it: K3 takes its merge route when they hold no NaN
+            # it: K3 takes its merge route when they hold no NaN. The flag
+            # of the processors this group holds is enough: it picks between
+            # two sub-routes whose bytes are equal
             has_nan = torch.isnan(x_sorted).any()
         merged, mvals, count = merge_mod.merge_tree(
             rows[0], rcounts, values=rows[1:], backend=cfg.merge_backend, cap=cap, has_nan=has_nan
@@ -282,7 +307,7 @@ def route_and_merge(
         mvals = [_fit(v, cap, _PAYLOAD_PAD) for v in mvals]
         return merged, mvals, torch.clamp(count, max=cap), overflow
 
-    buf, vbufs, count, overflow = route(x_sorted, boundaries, cfg, values)
+    buf, vbufs, count, overflow = route(x_sorted, boundaries, cfg, values, procs)
     merged, mvals = merge_mod.merge_by_sort(buf, vbufs)
     return merged, mvals, count, overflow
 
@@ -293,6 +318,7 @@ def _route_ring(
     cfg: SortConfig,
     values: Sequence[torch.Tensor],
     sent,
+    procs,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """p−1 rotation supersteps; the visitor block is one run + its boundaries.
 
@@ -303,38 +329,39 @@ def _route_ring(
     block (keys, payloads and the boundary row) moves as one byte row.
     """
     p, cap = cfg.p, cfg.n_max
-    n_p = x_sorted.shape[1]
+    nrows, n_p = x_sorted.shape
     dev = x_sorted.device
-    me = torch.arange(p, device=dev)
+    me = procs.proc_id(dev).long()
+    row = torch.arange(nrows, device=dev)
     arrs = [x_sorted, *values]
 
-    rcounts = recv_counts(send_counts(boundaries))  # (p_me, p_src)
+    rcounts = recv_counts(send_counts(boundaries), procs)  # (rows_me, p_src)
     offsets = prim.exclusive_cumsum(rcounts, dim=1)
     total = _received_total(rcounts, x_sorted)
-    overflow = (total > cap).any().expand(p)
+    overflow = procs.any(total > cap).expand(nrows)
 
     bufs = [
-        torch.full((p, cap + 1) + a.shape[2:], sent if i == 0 else _PAYLOAD_PAD, dtype=a.dtype, device=dev)
+        torch.full((nrows, cap + 1) + a.shape[2:], sent if i == 0 else _PAYLOAD_PAD, dtype=a.dtype, device=dev)
         for i, a in enumerate(arrs)
     ]  # column ``cap`` takes what the buffer drops
     t = torch.arange(n_p, device=dev)
     vis_arrs, vis_b = list(arrs), boundaries
     for r in range(p):
         src = (me - r) % p
-        start = vis_b[me, me]
-        cnt = vis_b[me, me + 1] - start
+        start = vis_b[row, me]
+        cnt = vis_b[row, me + 1] - start
         idx = torch.clamp(start[:, None] + t, 0, n_p - 1)
         valid = t < cnt[:, None]
-        dst = torch.where(valid, offsets[me, src][:, None] + t, cap).clamp(max=cap)
+        dst = torch.where(valid, offsets[row, src][:, None] + t, cap).clamp(max=cap)
         for buf, a in zip(bufs, vis_arrs):
             trail = a.shape[2:]
-            index = dst.reshape(dst.shape + (1,) * len(trail)).expand((p, n_p) + trail)
+            index = dst.reshape(dst.shape + (1,) * len(trail)).expand((nrows, n_p) + trail)
             prim.scatter_(buf, 1, index, prim.take_rows(a, idx))
         if r != p - 1:
             if cfg.exchange == "fused":
                 vec, metas = pack_bytes_flat(vis_arrs + [vis_b])
-                *vis_arrs, vis_b = unpack_bytes_flat(prim.ppermute_shift(vec, 1), metas)
+                *vis_arrs, vis_b = unpack_bytes_flat(procs.ppermute_shift(vec, 1), metas)
             else:
-                vis_arrs = prim.ppermute_shift(vis_arrs, 1)
-                vis_b = prim.ppermute_shift(vis_b, 1)
+                vis_arrs = procs.ppermute_shift(vis_arrs, 1)
+                vis_b = procs.ppermute_shift(vis_b, 1)
     return bufs[0][:, :cap], [b[:, :cap] for b in bufs[1:]], torch.clamp(total, max=cap), overflow

@@ -23,23 +23,23 @@ from .types import PreparedSort, SortConfig
 
 
 def prepare_det_spmd(
-    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = ()
+    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = (), procs=None
 ) -> PreparedSort:
     """Tier-invariant stages: Ph2 local sort + Ph3 sample/splitters."""
     xs, vals = local_sort(x, cfg.local_sort, values)
-    splits = splitters.splitter_stage(xs, cfg)
+    splits = splitters.splitter_stage(xs, cfg, procs=procs)
     return PreparedSort(xs=xs, vals=tuple(vals), splits=splits)
 
 
 def route_det_spmd(
-    prep: PreparedSort, cfg: SortConfig
+    prep: PreparedSort, cfg: SortConfig, procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Tier-dependent stages: Ph4 partition, Ph5 routing, Ph6 merge."""
-    bounds = splitters.searchsorted_tagged(prep.xs, prep.splits)
-    return routing.route_and_merge(prep.xs, bounds, cfg, list(prep.vals))
+    bounds = splitters.searchsorted_tagged(prep.xs, prep.splits, procs)
+    return routing.route_and_merge(prep.xs, bounds, cfg, list(prep.vals), procs)
 
 
 def sort_det_spmd(
-    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = ()
+    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = (), procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    return route_det_spmd(prepare_det_spmd(x, cfg, values), cfg)
+    return route_det_spmd(prepare_det_spmd(x, cfg, values, procs), cfg, procs)

@@ -23,7 +23,7 @@ from .types import PreparedSort, SortConfig
 
 
 def prepare_iran_spmd(
-    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = ()
+    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = (), procs=None
 ) -> PreparedSort:
     """Tier-invariant stage: Ph2 stable local sort (keys + payload)."""
     xs, vals = local_sort(x, cfg.local_sort, values)
@@ -31,16 +31,16 @@ def prepare_iran_spmd(
 
 
 def route_iran_spmd(
-    prep: PreparedSort, cfg: SortConfig, positions: torch.Tensor
+    prep: PreparedSort, cfg: SortConfig, positions: torch.Tensor, procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    """Tier-dependent stages: Ph3 splitters from the (p, s) sample
+    """Tier-dependent stages: Ph3 splitters from the (rows, s) sample
     positions, Ph4 partition, Ph5 routing, Ph6 merge."""
-    splits = splitters.splitter_stage(prep.xs, cfg, positions)
-    bounds = splitters.searchsorted_tagged(prep.xs, splits)
-    return routing.route_and_merge(prep.xs, bounds, cfg, list(prep.vals))
+    splits = splitters.splitter_stage(prep.xs, cfg, positions, procs)
+    bounds = splitters.searchsorted_tagged(prep.xs, splits, procs)
+    return routing.route_and_merge(prep.xs, bounds, cfg, list(prep.vals), procs)
 
 
 def sort_iran_spmd(
-    x: torch.Tensor, cfg: SortConfig, positions: torch.Tensor, values: Sequence[torch.Tensor] = ()
+    x: torch.Tensor, cfg: SortConfig, positions: torch.Tensor, values: Sequence[torch.Tensor] = (), procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    return route_iran_spmd(prepare_iran_spmd(x, cfg, values), cfg, positions)
+    return route_iran_spmd(prepare_iran_spmd(x, cfg, values), cfg, positions, procs)

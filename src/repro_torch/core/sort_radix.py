@@ -41,11 +41,11 @@ from .radix import _to_unsigned_order_preserving, unsigned_value
 from .types import PreparedSort, SortConfig
 
 
-def _boundaries_64(xs: torch.Tensor, p: int) -> torch.Tensor:
+def _boundaries_64(xs: torch.Tensor, p: int, procs) -> torch.Tensor:
     """Counted boundaries of sorted 64-bit integer runs, from the bucket
     starts as Python integers (one host read of the two extremes)."""
     top = 2**63
-    lo, hi = (int(v) + top for v in torch.stack([xs[:, 0].min(), xs[:, -1].max()]).tolist())
+    lo, hi = (int(v) + top for v in torch.stack([procs.min(xs[:, 0]), procs.max(xs[:, -1])]).tolist())
     width = (hi - lo) // p + 1
     starts = [lo + i * width for i in range(p + 1)]
     inside = [s < 2**64 for s in starts]
@@ -56,20 +56,21 @@ def _boundaries_64(xs: torch.Tensor, p: int) -> torch.Tensor:
     return torch.where(full, ranks, xs.shape[1]).to(torch.int32)
 
 
-def radix_boundaries(xs: torch.Tensor, p: int) -> torch.Tensor:
-    """Counted (p, p+1) bucket boundaries of the locally sorted runs ``xs``.
+def radix_boundaries(xs: torch.Tensor, p: int, procs=None) -> torch.Tensor:
+    """Counted (rows, p+1) bucket boundaries of the locally sorted runs ``xs``.
 
     b[:, 0] = 0, b[:, p] = n_p; destination i receives ``xs[k, b[k, i]:b[k, i+1]]``.
     Two scalar reductions over the processors (the JAX package's ``pmin``
     and ``pmax``) plus one vectorised binary search — no sample, no
     splitter sort.
     """
+    procs = prim.procs_or_local(procs, p)
     if not xs.is_floating_point() and xs.element_size() == 8:
-        return _boundaries_64(xs, p)
+        return _boundaries_64(xs, p, procs)
     u = unsigned_value(_to_unsigned_order_preserving(xs))
     modulus = 2 ** (xs.element_size() * 8)
-    lo = u[:, 0].min()  # each run is sorted: its first and last are its extremes
-    hi = u[:, -1].max()
+    lo = procs.min(u[:, 0])  # each run is sorted: its first and last are its extremes
+    hi = procs.max(u[:, -1])
     width = (hi - lo) % modulus // p + 1
     dest = (u - lo) % modulus // width
     dest = torch.where(dest >= 2**31, dest - 2**32, dest).to(torch.int32)  # astype(int32)
@@ -84,7 +85,7 @@ def host_send_counts(bounds: torch.Tensor) -> np.ndarray:
 
 
 def prepare_radix_spmd(
-    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = ()
+    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = (), procs=None
 ) -> PreparedSort:
     """Tier-invariant stage: Ph2 stable local sort + the counting pass.
 
@@ -93,18 +94,18 @@ def prepare_radix_spmd(
     dispatches the route stage.
     """
     xs, vals = local_sort(x, cfg.local_sort, values)
-    return PreparedSort(xs=xs, vals=tuple(vals), splits=(radix_boundaries(xs, cfg.p),))
+    return PreparedSort(xs=xs, vals=tuple(vals), splits=(radix_boundaries(xs, cfg.p, procs),))
 
 
 def route_radix_spmd(
-    prep: PreparedSort, cfg: SortConfig, positions: Optional[torch.Tensor] = None
+    prep: PreparedSort, cfg: SortConfig, positions: Optional[torch.Tensor] = None, procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Ph5 fused h-relation + Ph6 merge tail on the counted boundaries
     (nothing random: ``positions`` is unused)."""
-    return routing.route_and_merge(prep.xs, prep.splits[0], cfg, list(prep.vals))
+    return routing.route_and_merge(prep.xs, prep.splits[0], cfg, list(prep.vals), procs)
 
 
 def sort_radix_spmd(
-    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = ()
+    x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = (), procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
-    return route_radix_spmd(prepare_radix_spmd(x, cfg, values), cfg)
+    return route_radix_spmd(prepare_radix_spmd(x, cfg, values, procs), cfg, procs=procs)

@@ -28,22 +28,24 @@ from .types import SortConfig, to_device
 Tagged = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (keys, procs, idxs)
 
 
-def regular_sample(x_sorted: torch.Tensor, cfg: SortConfig) -> Tagged:
-    """s segment right-boundaries of every run (p, n_p) -> three (p, s)."""
-    p, n_p = x_sorted.shape
+def regular_sample(x_sorted: torch.Tensor, cfg: SortConfig, procs=None) -> Tagged:
+    """s segment right-boundaries of every run (rows, n_p) -> three (rows, s)."""
+    rows, n_p = x_sorted.shape
+    procs = prim.procs_or_local(procs, cfg.p)
     s, x = cfg.s, cfg.segment_len
     dev = x_sorted.device
     pos = torch.arange(1, s + 1, device=dev) * x - 1
     idx = torch.clamp(pos, max=n_p - 1).to(torch.int32)
     keys = x_sorted[:, idx.long()]
-    procs = prim.proc_id(p, dev)[:, None].expand(p, s)
-    return keys, procs, idx.expand(p, s)
+    tags = procs.proc_id(dev)[:, None].expand(rows, s)
+    return keys, tags, idx.expand(rows, s)
 
 
 def sample_positions(cfg: SortConfig, generator: torch.Generator, device) -> torch.Tensor:
     """(p, s) int32 uniform positions in every run, drawn on the host.
 
-    Drawn from a CPU generator so the card and the CPU take the same sample.
+    Drawn from a CPU generator so the card and the CPU take the same sample
+    (and every rank of a sharded sort the same table: each keeps its row).
     Sorted per processor for ``iran`` (the run is sorted, so sorting the
     positions sorts the sample), left as drawn for ``ran``.
     """
@@ -53,17 +55,19 @@ def sample_positions(cfg: SortConfig, generator: torch.Generator, device) -> tor
     return to_device(pos.to(torch.int32), device)
 
 
-def random_sample(x_sorted: torch.Tensor, positions: torch.Tensor) -> Tagged:
-    """The keys of every run (p, n_p) at its positions (p, s), tagged."""
-    p, s = positions.shape
-    procs = prim.proc_id(p, x_sorted.device)[:, None].expand(p, s)
+def random_sample(x_sorted: torch.Tensor, positions: torch.Tensor, procs=None) -> Tagged:
+    """The keys of every run (rows, n_p) at its positions (rows, s), tagged."""
+    rows, s = positions.shape
+    procs = prim.procs_or_local(procs, rows)
+    tags = procs.proc_id(x_sorted.device)[:, None].expand(rows, s)
     idx = positions.to(torch.int32)
-    return prim.take_rows(x_sorted, idx), procs, idx
+    return prim.take_rows(x_sorted, idx), tags, idx
 
 
-def sample_sort_gather(sample: Tagged) -> Tagged:
+def sample_sort_gather(sample: Tagged, procs=None) -> Tagged:
     """All-gather the sample (proc-major) and sort it lexicographically."""
-    gathered = tuple(a.reshape(-1) for a in sample)
+    procs = prim.procs_or_local(procs, sample[0].shape[0])
+    gathered = tuple(procs.gather_rows(a).reshape(-1) for a in sample)
     return prim.lex_sort(gathered, num_keys=3)
 
 
@@ -75,54 +79,56 @@ def _merge_split_tagged(a: Tagged, b: Tagged, keep_low: torch.Tensor) -> Tagged:
     return tuple(torch.where(keep_low, t[:, :m], t[:, m:]) for t in merged)
 
 
-def sample_sort_bitonic(sample: Tagged, p: int) -> Tagged:
+def sample_sort_bitonic(sample: Tagged, p: int, procs=None) -> Tagged:
     """Batcher's bitonic sort of the tagged sample over the processors.
 
-    Every run (p, s) must be sorted already. lg p · (lg p + 1)/2
+    Every run (rows, s) must be sorted already. lg p · (lg p + 1)/2
     compare-split supersteps, each one exchange with the XOR partner.
     """
+    procs = prim.procs_or_local(procs, p)
     lgp = int(math.log2(p))
-    me = prim.proc_id(p, sample[0].device)
+    me = procs.proc_id(sample[0].device)
     cur = tuple(a.contiguous() for a in sample)
     for i in range(lgp):
         for j in range(i, -1, -1):
-            other = prim.exchange_with(cur, 1 << j)
+            other = procs.exchange_with(cur, 1 << j)
             up = ((me >> (i + 1)) & 1) == 0
             lower_half = ((me >> j) & 1) == 0
             cur = _merge_split_tagged(cur, other, (up == lower_half)[:, None])
     return cur
 
 
-def select_splitters(cfg: SortConfig, sorted_sample: Tagged, mode: str = "gather") -> Tagged:
-    """Fig. 1 step 6: the p-1 splitters, replicated (p, p-1).
+def select_splitters(cfg: SortConfig, sorted_sample: Tagged, mode: str = "gather", procs=None) -> Tagged:
+    """Fig. 1 step 6: the p-1 splitters, replicated (rows, p-1).
 
     ``gather``: positions i·s-1 of the replicated sorted sample.
     ``bitonic``: splitter i is the last record of processor i-1's sorted
     run, broadcast by one all_gather of one record per processor.
     """
     p, s = cfg.p, cfg.s
+    procs = prim.procs_or_local(procs, p)
     if mode == "gather":
         pos = torch.arange(1, p, device=sorted_sample[0].device) * s - 1
         picked = tuple(a[pos] for a in sorted_sample)
     else:
-        picked = tuple(a[:-1, -1] for a in sorted_sample)
-    return tuple(a.unsqueeze(0).expand(p, p - 1).contiguous() for a in picked)
+        picked = tuple(procs.gather_rows(a[:, -1])[:-1] for a in sorted_sample)
+    return tuple(a.unsqueeze(0).expand(procs.rows, p - 1).contiguous() for a in picked)
 
 
-def searchsorted_tagged(x_sorted: torch.Tensor, splitters: Tagged) -> torch.Tensor:
-    """Partition boundaries (p, p+1) int32 of every run by the tagged splitters.
+def searchsorted_tagged(x_sorted: torch.Tensor, splitters: Tagged, procs=None) -> torch.Tensor:
+    """Partition boundaries (rows, p+1) int32 of every run by the tagged splitters.
 
     Element j of processor ``me`` lies left of splitter (ks, ps, is) iff
     (x[j], me, j) < (ks, ps, is); the predicate is monotone along a sorted
     run, so ⌈lg(n_p+1)⌉ halving steps count it.
     """
-    p, n_p = x_sorted.shape
+    rows, n_p = x_sorted.shape
     sk, sp, si = splitters
     dev = x_sorted.device
-    me = prim.proc_id(p, dev)[:, None]
+    me = prim.procs_or_local(procs, rows).proc_id(dev)[:, None]
     nq = sk.shape[1]
-    lo = torch.zeros((p, nq), dtype=torch.int32, device=dev)
-    hi = torch.full((p, nq), n_p, dtype=torch.int32, device=dev)
+    lo = torch.zeros((rows, nq), dtype=torch.int32, device=dev)
+    hi = torch.full((rows, nq), n_p, dtype=torch.int32, device=dev)
     for _ in range(max(1, math.ceil(math.log2(n_p + 1)))):
         active = lo < hi  # converged lanes must not move (mid == hi is out of range)
         mid = torch.div(lo + hi, 2, rounding_mode="floor")
@@ -130,24 +136,32 @@ def searchsorted_tagged(x_sorted: torch.Tensor, splitters: Tagged) -> torch.Tens
         less = prim.lex_less(xm, me, mid, sk, sp, si)
         lo = torch.where(active & less, mid + 1, lo)
         hi = torch.where(active & ~less, mid, hi)
-    zeros = torch.zeros((p, 1), dtype=torch.int32, device=dev)
+    zeros = torch.zeros((rows, 1), dtype=torch.int32, device=dev)
     return torch.cat([zeros, lo, torch.full_like(zeros, n_p)], dim=1)
 
 
 def splitter_stage(
-    x_sorted: torch.Tensor, cfg: SortConfig, positions: Optional[torch.Tensor] = None
+    x_sorted: torch.Tensor, cfg: SortConfig, positions: Optional[torch.Tensor] = None, procs=None
 ) -> Tagged:
     """Full Ph3: sampling, sample sort and splitter selection.
 
     ``det`` takes the regular sample; ``iran`` the keys at ``positions``
-    (p, s), a sample drawn anew for every ladder rung.
+    (rows, s), a sample drawn anew for every ladder rung.
     """
+    procs = prim.procs_or_local(procs, cfg.p)
     if cfg.algorithm == "det":
-        sample = regular_sample(x_sorted, cfg)
+        sample = regular_sample(x_sorted, cfg, procs)
     else:
         if positions is None:
             raise ValueError(f"algorithm={cfg.algorithm!r} needs sample positions")
-        sample = random_sample(x_sorted, positions)
+        sample = random_sample(x_sorted, positions, procs)
+    return splitters_from_sorted_sample(cfg, sample, procs)
+
+
+def splitters_from_sorted_sample(cfg: SortConfig, sample: Tagged, procs=None) -> Tagged:
+    """The configured sample sort of a tagged (rows, s) sample and the
+    splitter selection after it: replicated (rows, p-1) splitters."""
+    procs = prim.procs_or_local(procs, cfg.p)
     if cfg.sample_sort == "gather":
-        return select_splitters(cfg, sample_sort_gather(sample), "gather")
-    return select_splitters(cfg, sample_sort_bitonic(sample, cfg.p), "bitonic")
+        return select_splitters(cfg, sample_sort_gather(sample, procs), "gather", procs)
+    return select_splitters(cfg, sample_sort_bitonic(sample, cfg.p, procs), "bitonic", procs)

@@ -14,8 +14,9 @@ runs the train, prefill or decode step on them under
 ``roofline.count_step`` and derives the terms with ``roofline.analyze``.
 A trace that fails (a step that reads a value back, or a data-dependent
 shape) is a cell with ``status: error``. It sets no environment variable
-and touches no device. There is no ``--multi-pod``: the mesh waits for
-the port's ``torch.distributed`` runner (ROADMAP.md, queue 1 item 5).
+and touches no device. There is no ``--multi-pod``: the mesh's terms
+wait for the DeviceMesh/DTensor half of the mesh port (ROADMAP.md,
+queue 1 item 6).
 
 Per cell this records the trace's wall (``trace_s``, in place of the
 reference's ``lower_s`` and ``compile_s``), the counted FLOPs and bytes

@@ -5,7 +5,7 @@ The port of the JAX package's ``repro.launch.steps`` for one device. The
 reference wraps each step in ``jax.jit`` with explicit shardings; the port
 runs eagerly, so without a mesh a factory returns a plain function that
 calls the model. A mesh (the reference's sharded steps) waits for the
-port's ``torch.distributed`` runner.
+DeviceMesh/DTensor half of the mesh port.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "the port's serving steps have no mesh path yet: the sharded steps wait for the "
-            "torch.distributed runner (ROADMAP.md, queue 1 item 5)"
+            "DeviceMesh/DTensor half of the mesh port (ROADMAP.md, queue 1 item 6)"
         )
 
 

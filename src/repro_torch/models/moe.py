@@ -1,13 +1,38 @@
-"""Mixture-of-Experts with sort-based token dispatch, single device.
+"""Mixture-of-Experts with sort-based token dispatch.
 
-The port of the JAX package's ``repro.models.moe``, its single-device part:
-the router, the expert FFN and the grouped-GEMM dispatch of ``moe_tp``.
-Dispatching tokens to experts is step 9 of SORT_DET_BSP: a stable integer
-sort of the (token, choice) records by expert id, each expert's block then
-one dense GEMM, and the records scattered back. The expert-parallel paths
-(``moe_ep*``, ``moe_tp_sharded``, ``moe_ep_safe``, ``moe_ep_counts``) run
-under ``shard_map`` in the reference and wait for the port's
-``torch.distributed`` runner (ROADMAP.md, queue 1 item 5).
+The port of the JAX package's ``repro.models.moe``. Dispatching tokens to
+experts is steps 9–11 of SORT_DET_BSP: a stable integer sort of the
+(token, choice) records by expert id, then one balanced all-to-all, the
+stable inverse permutation restoring token order. Paths:
+
+* ``moe_tp`` — one device: the grouped-GEMM dispatch, each expert's block
+  one dense GEMM, the records scattered back.
+* ``moe_ep`` — expert parallelism over the ``model`` axis of a
+  ``DeviceMesh`` (``torch.distributed``). Each rank holds its block of the
+  tokens (B over the data axes, S over the model axis when they divide)
+  and its E / model_size experts. It sorts its records by expert, cuts
+  one row per model shard, and sends them by ONE byte-packed
+  ``all_to_all`` (expert ids and token rows in one buffer,
+  ``core/routing.pack_bytes``) at a capacity of ⌈n·cf/p⌉ records a row;
+  overflow is detected and surfaced (``aux['overflow']``), never silent.
+  The reverse ``all_to_all`` and the stable unsort are the combine.
+* ``moe_ep_decode`` — few tokens: every model shard evaluates its experts
+  on every token of its data shard, combined by one ``all_reduce``.
+* ``moe_tp_sharded`` — experts replicated, their FFN width split over the
+  model axis: a row-parallel FFN with one ``all_reduce`` of the (T_loc, D)
+  output. Its tokens are sharded over the data axes only: every model
+  shard must hold the same tokens for that sum to be one token's. (The
+  JAX package also shards S over the model axis here when it divides,
+  which sums the partial outputs of different tokens; the port does not
+  copy that.)
+* ``moe_ep_safe`` — the capacity ladder (whp → whp2 → full) of the sort
+  driver over ``moe_ep``, or ``route="radix"``: the exact counts from
+  ``moe_ep_counts`` first, then one dispatch that cannot overflow.
+
+Each rank passes its own blocks: :func:`token_block` cuts a rank's tokens
+from the global batch and :func:`expert_block` / :func:`ffn_block` its
+weights, as the reference's ``shard_map`` specs do. The router's aux terms
+are averaged and the overflow flag maxed over every axis of the mesh.
 
 Two choices the reference makes implicitly are explicit here:
 
@@ -28,34 +53,64 @@ Two choices the reference makes implicitly are explicit here:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from .. import obs as obs_mod
 from ..configs.base import ArchConfig
+from ..core import routing
+from ..core.api import TierStats
+from ..core.primitives import GroupProcs, LocalProcs
 from .layers import _dense, dtype_of, top_k_stable
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEMeshInfo:
-    """How the MoE layer sees the mesh. The port has the single-device path
-    only (``mesh=None``); a mesh waits for the ``torch.distributed`` runner."""
+    """How the MoE layer sees the mesh: a ``DeviceMesh`` and the names of
+    its model axis and data axes (``mesh=None``: one device)."""
 
     mesh: object = None
     model_axis: str = "model"
     data_axes: tuple = ("data",)
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the port's MoE has no mesh path yet: the expert-parallel dispatch "
-                "waits for the torch.distributed runner (ROADMAP.md, queue 1 item 5)"
-            )
+        if self.mesh is not None and not hasattr(self.mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, not {type(self.mesh).__name__}")
+
+    def size(self, axis: str) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(axis))
 
     @property
     def model_size(self) -> int:
-        return 1
+        return 1 if self.mesh is None else self.size(self.model_axis)
+
+    @property
+    def data_size(self) -> int:
+        return 1 if self.mesh is None else math.prod(self.size(a) for a in self.data_axes)
+
+    def index(self, axis: str) -> int:
+        return self.mesh.get_local_rank(axis)
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place along the data axes, the first axis major."""
+        i = 0
+        for a in self.data_axes:
+            i = i * self.size(a) + self.index(a)
+        return i
+
+    def model_procs(self):
+        """The model axis as a processor group (one processor without a mesh)."""
+        return LocalProcs(1) if self.mesh is None else GroupProcs.from_mesh(self.mesh, self.model_axis)
+
+    def axis_procs(self) -> list:
+        """Every axis of the mesh as a processor group, data axes first."""
+        if self.mesh is None:
+            return []
+        return [GroupProcs.from_mesh(self.mesh, a) for a in (*self.data_axes, self.model_axis)]
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict[str, torch.Tensor]:
@@ -175,3 +230,284 @@ def moe_tp(params: Dict, x: torch.Tensor, cfg: ArchConfig, capacity_factor=1.25,
     *lead, D = x.shape
     y, aux = _grouped_gemm_moe(params, x.reshape(-1, D), cfg, capacity_factor, lanes)
     return y.reshape(*lead, D), aux
+
+
+# ------------------------------------------------------- the mesh's blocks
+def _dp_spec(mesh_info: MoEMeshInfo, batch: int):
+    """Batch sharding over the data axes, or replication when indivisible
+    (the global_batch=1 long-context decode cell)."""
+    return mesh_info.data_axes if batch % mesh_info.data_size == 0 else None
+
+
+def token_slices(shape, mesh_info: MoEMeshInfo, seq_shard: bool) -> Tuple[slice, slice]:
+    """This rank's (batch, sequence) slices of global (B, S, D) tokens: B
+    over the data axes when it divides, S over the model axis when
+    ``seq_shard`` and it divides (the reference's ``P(dp, seq, None)``)."""
+    b, s = shape[0], shape[1]
+    bs, ss = slice(0, b), slice(0, s)
+    if mesh_info.mesh is None:
+        return bs, ss
+    if _dp_spec(mesh_info, b) is not None:
+        n = b // mesh_info.data_size
+        bs = slice(mesh_info.data_index * n, (mesh_info.data_index + 1) * n)
+    p = mesh_info.model_size
+    if seq_shard and s % p == 0:
+        n = s // p
+        m = mesh_info.index(mesh_info.model_axis)
+        ss = slice(m * n, (m + 1) * n)
+    return bs, ss
+
+
+def token_block(x: torch.Tensor, mesh_info: MoEMeshInfo, seq_shard: bool = True) -> torch.Tensor:
+    """This rank's block of global (B, S, D) tokens (see :func:`token_slices`):
+    ``seq_shard=True`` for ``moe_ep`` and ``moe_ep_counts``, False for
+    ``moe_ep_decode`` and ``moe_tp_sharded``."""
+    bs, ss = token_slices(x.shape, mesh_info, seq_shard)
+    return x[bs, ss]
+
+
+def expert_block(params: Dict[str, torch.Tensor], mesh_info: MoEMeshInfo) -> Dict[str, torch.Tensor]:
+    """This rank's experts: the router whole, the expert weights' E
+    dimension split over the model axis (``P(model, None, None)``)."""
+    p = mesh_info.model_size
+    E = params["w_gate"].shape[0]
+    if E % p:
+        raise ValueError(f"the EP paths need the {E} experts divisible by the model axis ({p})")
+    m = 0 if mesh_info.mesh is None else mesh_info.index(mesh_info.model_axis)
+    e = slice(m * (E // p), (m + 1) * (E // p))
+    return {"router": params["router"], **{k: params[k][e] for k in ("w_gate", "w_up", "w_down")}}
+
+
+def ffn_block(params: Dict[str, torch.Tensor], mesh_info: MoEMeshInfo) -> Dict[str, torch.Tensor]:
+    """This rank's slice of every expert's FFN width (``moe_tp_sharded``):
+    ``w_gate``/``w_up`` split on F (their last dimension), ``w_down`` on F
+    (its middle one)."""
+    p = mesh_info.model_size
+    Fd = params["w_gate"].shape[-1]
+    m = 0 if mesh_info.mesh is None else mesh_info.index(mesh_info.model_axis)
+    f = slice(m * (Fd // p), (m + 1) * (Fd // p))
+    return {"router": params["router"], "w_gate": params["w_gate"][..., f], "w_up": params["w_up"][..., f],
+            "w_down": params["w_down"][:, f]}
+
+
+def _reduce_aux(aux: Dict, axes: list, flag: Optional[torch.Tensor] = None) -> Dict:
+    """The aux terms averaged over every rank of the mesh (``pmean``) and
+    ``flag`` raised where any rank raised it (``pmax``): the terms and the
+    flag packed in one float32 tensor, one ``all_reduce`` per mesh axis.
+    Without ``flag`` the result holds no ``overflow``."""
+    if not axes:
+        return aux if flag is None else {**aux, "overflow": flag}
+    keys = list(aux)
+    terms = [aux[k].float() for k in keys] + ([] if flag is None else [flag.float()])
+    packed = torch.stack(terms)
+    for a in axes:
+        packed = a.all_reduce(packed)
+    n = math.prod(a.p for a in axes)
+    out = {k: (packed[i] / n).to(aux[k].dtype) for i, k in enumerate(keys)}
+    if flag is not None:
+        out["overflow"] = packed[-1] > 0
+    return out
+
+
+def _psum_model(y: torch.Tensor, mesh_info: MoEMeshInfo) -> torch.Tensor:
+    return y if mesh_info.mesh is None else mesh_info.model_procs().all_reduce(y)
+
+
+# -------------------------------------------------------------- the TP path
+def moe_tp_sharded(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo,
+                   capacity_factor=1.25):
+    """Grouped-GEMM MoE with the experts' FFN width split over the model
+    axis. ``x`` is this rank's (B_loc, S, D) block (``token_block(...,
+    seq_shard=False)``), ``params`` its :func:`ffn_block`. The only
+    collective is ONE ``all_reduce`` of the (T_loc, D) output over the
+    model axis, the row-parallel reduction."""
+    bl, sl, D = x.shape
+    y, aux = _grouped_gemm_moe(params, x.reshape(-1, D), cfg, capacity_factor)
+    y = _psum_model(y, mesh_info)
+    ov = aux.pop("overflow")
+    return y.reshape(bl, sl, D), _reduce_aux(aux, mesh_info.axis_procs(), ov)
+
+
+# --------------------------------------------------------- the EP (a2a) path
+def moe_ep(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo,
+           capacity_factor=1.25, pair_cap_override: Optional[int] = None):
+    """Expert-parallel MoE over the model axis.
+
+    ``x`` is this rank's (B_loc, S_loc, D) block (:func:`token_block`),
+    ``params`` its :func:`expert_block`: the router and its e_loc = E / p
+    experts. ``pair_cap_override`` pins the per-(src, dst) row capacity:
+    ``moe_ep_safe(route="radix")`` passes the counted maximum there.
+    """
+    procs = mesh_info.model_procs()
+    p = procs.p
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    if E % p:
+        raise ValueError("the EP path needs the experts divisible by the model axis")
+    e_loc = E // p
+    bl, sl, D = x.shape
+    dev = x.device
+    x2d = x.reshape(-1, D)
+    t_loc = x2d.shape[0]
+    probs, experts, aux = _router(x2d, params["router"], k)
+
+    n = t_loc * k
+    if pair_cap_override is not None:
+        pair_cap = min(int(pair_cap_override), n)
+    else:
+        pair_cap = int(-(-n * capacity_factor // p))
+    cap = p * pair_cap
+
+    # paper step 9: stable integer sort of the records by expert id
+    flat_e = experts.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    dest = sorted_e // e_loc  # destination shard, contiguous in sorted order
+    bounds = torch.searchsorted(dest, torch.arange(p + 1, dtype=dest.dtype, device=dev), side="left").to(torch.int32)
+    counts = torch.diff(bounds)
+    aux = _reduce_aux(aux, mesh_info.axis_procs(), torch.any(counts > pair_cap))
+
+    # paper steps 10-11: segment rows + ONE all_to_all of the byte-packed
+    # expert ids and token rows (the fused h-relation of core/routing)
+    tix = torch.arange(pair_cap, device=dev)[None, :]
+    gidx = torch.clamp(bounds[:-1, None] + tix, 0, n - 1).long()
+    valid = tix < counts[:, None]
+    rows_e = torch.where(valid, sorted_e[gidx], torch.full((), -1, dtype=sorted_e.dtype, device=dev))
+    sorted_tok = x2d[order // k]  # record i <-> token order[i] // k
+    zero = torch.zeros((), dtype=x.dtype, device=dev)
+    rows_x = torch.where(valid[..., None], sorted_tok[gidx], zero)
+    fused, metas = routing.pack_bytes([rows_e, rows_x], lead=2)
+    recv_e, recv_x = routing.unpack_bytes(procs.all_to_all(fused[None])[0], metas, lead=2)
+
+    # local experts, masked over the e_loc experts of this shard
+    me = 0 if mesh_info.mesh is None else procs.index
+    flat_re = recv_e.reshape(cap)
+    flat_rx = recv_x.reshape(cap, D)
+    out = torch.zeros_like(flat_rx)
+    for e in range(e_loc):
+        sel = flat_re == me * e_loc + e
+        y_e = _expert_ffn(flat_rx, params["w_gate"][e], params["w_up"][e], params["w_down"][e])
+        out = torch.where(sel[:, None], y_e, out)
+
+    # the reverse all_to_all, back to the source's sorted order; a record's
+    # output came back in row i at t, its sorted position bounds[i] + t
+    back = procs.all_to_all(out.reshape(1, p, pair_cap, D))[0]
+    src_pos = torch.where(valid, bounds[:-1, None] + tix, n).reshape(-1).long()
+    sorted_out = torch.zeros((n + 1, D), dtype=x.dtype, device=dev)
+    sorted_out[src_pos] = back.reshape(-1, D)  # unsent records read row n
+    rec_out = torch.empty((n, D), dtype=x.dtype, device=dev)
+    rec_out[order] = sorted_out[:n]  # the stable unsort
+    w = probs.reshape(-1)[:, None].to(x.dtype)
+    y = (rec_out * w).reshape(t_loc, k, D).sum(1)
+    return y.reshape(bl, sl, D), aux
+
+
+def moe_ep_counts(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo) -> torch.Tensor:
+    """The radix EP route's counting pass: only the router runs, and the
+    records of every destination shard are counted. Returns a 0-d int32,
+    the largest per-(src, dst) count over the mesh, the same on every rank.
+    ``x`` and ``params`` as for :func:`moe_ep`."""
+    p = mesh_info.model_size
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    if E % p:
+        raise ValueError("the EP path needs the experts divisible by the model axis")
+    _, experts, _ = _router(x.reshape(-1, x.shape[-1]), params["router"], k)
+    dest = experts.reshape(-1).long() // (E // p)
+    counts = torch.zeros(p, dtype=torch.int32, device=x.device).scatter_add_(
+        0, dest, torch.ones_like(dest, dtype=torch.int32))
+    top = counts.max()
+    for a in mesh_info.axis_procs():
+        top = a.max(top)
+    return top
+
+
+def moe_capacity_ladder(capacity_factor: float, p: int) -> tuple:
+    """EP dispatch capacity tiers, after ``SortConfig.tier_ladder``:
+    ``whp`` the configured guess (pair_cap = ⌈n·cf/p⌉), ``whp2`` twice it,
+    ``full`` pair_cap = n, which no routing can overflow."""
+    tiers = [("whp", float(capacity_factor)), ("whp2", 2.0 * capacity_factor)]
+    if 2.0 * capacity_factor < p:
+        tiers.append(("full", float(p)))
+    else:  # whp2 already at or above full capacity: one terminal rung
+        tiers[-1] = ("full", float(p))
+    return tuple(tiers)
+
+
+def moe_ep_safe(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo,
+                capacity_factor: float = 1.25, stats: Optional[TierStats] = None, planner=None,
+                route: str = "sample", obs=None):
+    """Overflow-safe EP dispatch: escalate the capacity on a dropped record.
+
+    Runs :func:`moe_ep` at each rung of :func:`moe_capacity_ladder` until
+    the replicated ``aux['overflow']`` flag is clean (every rank reads the
+    same flag, so all climb together); the terminal ``full`` rung holds
+    every record. ``route="radix"`` counts first (:func:`moe_ep_counts`,
+    one host read) and dispatches once at the count rounded up on a
+    1/16-octave grid: zero retries. ``planner`` starts the ladder at the
+    rung learned for the bucket ``moe/{name}/ep{p}/t{B·S}/cf{cf}`` (B·S of
+    this rank's block); ``obs`` (a tracer) records a ``count`` span and a
+    ``dispatch`` span per attempt on a ``moe`` lane. Returns ``(y, aux,
+    stats)``.
+    """
+    stats = stats if stats is not None else TierStats()
+    tracer = obs_mod.resolve_tracer(obs)
+    tid = tracer.next_tid("moe") if tracer is not None else None
+    if route == "radix":
+        t0 = tracer.now() if tracer is not None else 0.0
+        pair_true = int(moe_ep_counts(params, x, cfg, mesh_info))
+        if tracer is not None:
+            tracer.add_span("count", t0, cat="moe", tid=tid, pair_true=pair_true)
+            tracer.point("host_sync", cat="moe", tid=tid, what="moe_counts")
+        step = max(8, 1 << max(0, pair_true.bit_length() - 4))
+        qpair = -(-max(pair_true, 1) // step) * step
+        t1 = tracer.now() if tracer is not None else 0.0
+        y, aux = moe_ep(params, x, cfg, mesh_info, 1.0, pair_cap_override=qpair)
+        overflow = bool(aux["overflow"])
+        if tracer is not None:
+            tracer.add_span("dispatch", t1, cat="moe", tid=tid, tier="radix", ok=not overflow, pair_cap=qpair)
+        obs_mod.metrics().counter("moe.radix_dispatches").inc()
+        if overflow:  # the capacity covers the counted maximum: unreachable
+            raise RuntimeError("radix EP dispatch overflowed its counted capacity")
+        stats.record("radix", True)
+        return y, aux, stats
+    ladder = moe_capacity_ladder(capacity_factor, mesh_info.model_size)
+    n_rungs, bucket = len(ladder), None
+    if planner is not None and n_rungs > 1:
+        bucket = f"moe/{cfg.name}/ep{mesh_info.model_size}/t{x.shape[0] * x.shape[1]}/cf{capacity_factor}"
+        ladder = ladder[planner.rung_for(bucket, n_rungs):]
+    faulted = False
+    for tier, cf in ladder:
+        t0 = tracer.now() if tracer is not None else 0.0
+        y, aux = moe_ep(params, x, cfg, mesh_info, cf)
+        ok = not bool(aux["overflow"])
+        if tracer is not None:
+            tracer.add_span("dispatch", t0, cat="moe", tid=tid, tier=tier, ok=ok, capacity_factor=cf)
+        stats.record(tier, ok)
+        if ok:
+            if bucket is not None:
+                planner.observe(bucket, faulted, n_rungs)
+            return y, aux, stats
+        faulted = True
+    raise RuntimeError("EP capacity escalation exhausted — unreachable: the full tier holds every record")
+
+
+def moe_ep_decode(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo):
+    """EP MoE for few tokens (decode): every model shard evaluates its
+    experts on every token of its data shard, combined by one
+    ``all_reduce``: no all-to-all, no capacity. ``x`` is this rank's
+    (B_loc, S, D) block (``token_block(..., seq_shard=False)``), ``params``
+    its :func:`expert_block`."""
+    p = mesh_info.model_size
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    e_loc = E // p
+    bl, sl, D = x.shape
+    x2d = x.reshape(-1, D)
+    probs, experts, aux = _router(x2d, params["router"], k)
+    me = 0 if mesh_info.mesh is None else mesh_info.index(mesh_info.model_axis)
+    y = torch.zeros_like(x2d)
+    for e in range(e_loc):
+        w_tok = (probs * (experts == me * e_loc + e)).sum(-1).to(x.dtype)  # (T,)
+        y = y + w_tok[:, None] * _expert_ffn(x2d, params["w_gate"][e], params["w_up"][e], params["w_down"][e])
+    y = _psum_model(y, mesh_info)
+    aux = _reduce_aux(aux, mesh_info.axis_procs())
+    aux["overflow"] = torch.zeros((), dtype=torch.bool, device=x.device)
+    return y.reshape(bl, sl, D), aux

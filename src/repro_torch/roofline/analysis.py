@@ -17,7 +17,7 @@ Terms per step, in seconds:
 
     compute = counted FLOPs / PEAK_FLOPS
     memory  = counted bytes / HBM_BW
-    collective = 0 (one device; the mesh waits for ROADMAP.md, queue 1 item 5)
+    collective = 0 (one device; the mesh's terms wait for ROADMAP.md, queue 1 item 6)
 
 Both constants are the published peaks of one H100 SXM, so the seconds
 are bounds a step cannot beat, not times. ``model_flops`` is the analytic

@@ -33,7 +33,7 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "the port's train step has no mesh path yet: the sharded step waits for the "
-            "torch.distributed runner (ROADMAP.md, queue 1 item 5)"
+            "DeviceMesh/DTensor half of the mesh port (ROADMAP.md, queue 1 item 6)"
         )
 
 

@@ -56,9 +56,9 @@ def test_mesh_free_steps_are_the_model_steps(arch):
 
 def test_steps_refuse_a_mesh():
     model = Model(get_arch("tinyllama-1.1b").reduced(), device="meta")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1 item 6"):
         make_prefill_step(model, object(), cache_len=8)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1 item 6"):
         make_decode_step(model, object(), batch=2, cache_len=8)
 
 

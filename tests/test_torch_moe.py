@@ -129,6 +129,9 @@ def test_lanes_keep_the_per_lane_capacity_rule(lanes, t_lane, cf):
 
 
 def test_mesh_info_without_a_mesh_only():
-    assert moe.MoEMeshInfo().model_size == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Without a mesh the layer sees one device; a mesh must be a
+    ``DeviceMesh`` (the mesh paths: ``tests/test_torch_moe_ep.py``)."""
+    info = moe.MoEMeshInfo()
+    assert (info.model_size, info.data_size, info.axis_procs()) == (1, 1, [])
+    with pytest.raises(TypeError, match="DeviceMesh"):
         moe.MoEMeshInfo(mesh=object())
