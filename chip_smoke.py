@@ -139,7 +139,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      tokens) and 4 arrivals on 8 slots in bfloat16, greedy,
                      32 new tokens each: every request answered within its
                      budget, refills and prefetches, the admission order;
-                     wall (median of 3 warm runs), tokens/s, prefill ms,
+                     wall (median of 2 warm runs), tokens/s, prefill ms,
                      the decode step at 8 lanes, device busy and idle share
                      over a profiled window, peak memory; the float32
                      streams of 8 requests equal ``generate()`` of each
@@ -243,10 +243,34 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      (mesh (1, 1)), the same checks; its calls move no bytes
                      between cards. Walls over gloo go through the host on
                      one card and say nothing of NVLink.
+23. ``mesh_path``  — the mesh half over DTensor: 4 gloo ranks sharing
+                     ``cuda:0`` as a (data 2, model 2) mesh (NCCL refuses
+                     two ranks of one communicator on one card). First
+                     gloo's ``reduce_scatter_tensor`` and
+                     ``all_gather_into_tensor`` on CUDA tensors over both
+                     axes; then float32 parity with one process on the card
+                     (rank 0 runs it): granite-moe-1b-a400m (1d: EP MoE,
+                     TP attention, Megatron-SP) and tinyllama-1.1b (dp,
+                     ZeRO-1; served under 1d) at published widths cut to
+                     2 layers, one train step at 4 x 256 (AdamW eps 1),
+                     prefill at 4 x 256 and 3 decode steps at 4 lanes: the
+                     loss, every updated leaf and the logits within 1e-4
+                     of their largest, the same records dropped; then
+                     granite at full depth in bf16 with remat: train at
+                     4 x 4096 (2 steps: the first's wall, tokens/s, peak
+                     a rank; the second profiled on every rank, the card's
+                     busy time summed over the ranks, and on rank 0 the
+                     device's top ops, idle share and ``HostSplit``: the
+                     aten ops dispatched and the wall split into
+                     collectives, host reads, other ops and Python),
+                     prefill 8 x 512 (median of 2), decode at 8 lanes
+                     over a 1024 cache; the same full-width steps in one
+                     process beside them, one step under ``HostSplit``.
+                     It launches no K1-K4.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20, 21 and 22, each counted from zero
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20, 21, 22 and 23, each counted from zero
 just before the phase's checked runs and read just after, phase 22's
 summed over its ranks and also given as ``sharded_launches``; the int64
 routes of K2 and K3 and K3's float route are listed and counted on their
@@ -254,7 +278,7 @@ own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17, 18, 19, 20, 21, 22) runs the build and those phases only,
+phases 11, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23) runs the build and those phases only,
 and prints no result line.
 """
 from __future__ import annotations
@@ -2384,7 +2408,7 @@ def phase_lm_path(torch, core, build):
     if not np.array_equal(order, np.argsort(lengths, kind="stable")):
         fail("lm_path", "the admission order is not the stable argsort of the prompt lengths")
     walls = []
-    for _ in range(3):
+    for _ in range(2):
         wall, again, _, _ = timed_serve(torch, eng, prompts, 8, sched)
         walls.append(wall)
         if [a.tolist() for a in again] != [s.tolist() for s in streams]:
@@ -2979,7 +3003,7 @@ def phase_recurrent_path(torch, core, build):
     if not (refills >= 1 and prefetches >= refills):
         fail("recurrent_path", f"xlstm serve: refills {refills}, admission prefetches {prefetches}")
     walls = []
-    for _ in range(3):
+    for _ in range(2):
         wall, again, _, _ = timed_serve(torch, eng, prompts, 8, sched)
         walls.append(wall)
         if [a.tolist() for a in again] != [s.tolist() for s in streams]:
@@ -3756,6 +3780,468 @@ def phase_sharded_path(torch, core, build, device="cuda", n_p=SHARD["n_per_proc"
     return launches
 
 
+# ------------------------------------------------------------- mesh_path
+#: the mesh half: 4 gloo ranks sharing the card as a (data 2, model 2)
+#: mesh. Parity in float32 at published widths cut to ``parity_layers``
+#: layers: (arch, train policy, serving policy); then granite at full depth
+#: in bf16 with remat: the train batch (B, S) (one step), the prefill
+#: (B, S) and decode (lanes, cache)
+MESH_SPEC = dict(mesh=(2, 2), parity_layers=2, parity_train=(4, 256), parity_prefill=(4, 256), parity_lanes=4,
+                 decode_steps=3, parity=((LM_ARCH, "1d", "1d"), (DENSE_ARCH, "dp", "1d")),
+                 train=(4, 4096), prefill=(8, 512), decode=(8, 1024), reduced=False)
+#: the mesh's float32 parity with the one-process step on the card,
+#: relative to each leaf's (or the logits') largest magnitude
+MESH_TOL = 1e-4
+#: the parity step's AdamW: eps 1 makes its first update about lr · g, where
+#: the default eps gives about lr · sign(g) whatever |g| (an element whose
+#: gradient is rounding noise would move by lr either way)
+MESH_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1.0)
+
+
+class HostSplit:
+    """Where one step's wall goes on the host, with no sync added. A
+    dispatch mode counts the aten ops the step dispatches (a ``DTensor`` op
+    counted as the local ops it becomes; views included, as
+    ``dispatch_count`` counts) and times each on the host's clock, split
+    in three: the collectives (the ``c10d`` ops, each ``wait_tensor`` of
+    ``DTensor``'s, and ``torch.distributed``'s own calls timed whole,
+    their wait included), the host reads (``_local_scalar_dense`` and
+    copies from the card to the host: ``.item()``, ``.tolist()``,
+    ``bool()``), each waiting for the card to reach it, and every other
+    op (its dispatch and launch). What is left of the wall is Python
+    outside the ops. Each collective's ms, calls and bytes (of its
+    largest buffer) are kept by name."""
+
+    NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+    DIST = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single", "all_gather",
+            "broadcast", "barrier")
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        split = self
+        self.ops, self.depth, self.t0 = 0, 0, 0.0
+        self.ms = dict(collectives=0.0, host_reads=0.0, other_ops=0.0)
+        self.calls = dict(collectives=0, host_reads=0)
+        self.by = {}  # collective -> [ms, calls, bytes of its largest buffer]
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                split.ops += 1
+                if split.depth:  # inside a timed torch.distributed call
+                    return func(*args, **(kwargs or {}))
+                t0 = time.perf_counter()
+                out = func(*args, **(kwargs or {}))
+                ms = (time.perf_counter() - t0) * 1e3
+                if func.namespace in split.NAMESPACES:
+                    kind = "collectives"
+                    split.add(func.overloadpacket.__name__, ms, args)
+                elif split.host_read(func, args, out):
+                    kind = "host_reads"
+                else:
+                    kind = "other_ops"
+                split.ms[kind] += ms
+                if kind in split.calls:
+                    split.calls[kind] += 1
+                return out
+
+        self.mode = Mode()
+
+    @staticmethod
+    def host_read(func, args, out) -> bool:
+        import torch
+
+        if func.__name__.startswith("_local_scalar_dense"):
+            return True
+        return (isinstance(out, torch.Tensor) and out.device.type == "cpu"
+                and any(isinstance(a, torch.Tensor) and a.device.type == "cuda" for a in args))
+
+    def add(self, name: str, ms: float, args) -> None:
+        import torch
+
+        flat = [a for x in args for a in (x if isinstance(x, (list, tuple)) else [x])]
+        nbytes = max([a.numel() * a.element_size() for a in flat if isinstance(a, torch.Tensor)] or [0])
+        row = self.by.setdefault(name, [0.0, 0, 0])
+        row[0] += ms
+        row[1] += 1
+        row[2] += nbytes
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            outer = self.depth == 0
+            self.depth += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.depth -= 1
+                if outer:
+                    ms = (time.perf_counter() - t0) * 1e3
+                    self.ms["collectives"] += ms
+                    self.calls["collectives"] += 1
+                    self.add(fn.__name__, ms, args)
+        return call
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.saved = {n: getattr(dist, n) for n in self.DIST} if dist.is_initialized() else {}
+        for n, fn in self.saved.items():
+            setattr(dist, n, self._timed(fn))
+        self.mode.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+        self.mode.__exit__(*exc)
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+    def row(self) -> dict:
+        """The split of the wall (ms): collectives, host reads, the other
+        ops' dispatch, Python (the rest); the ops and the calls counted."""
+        python = self.wall_ms - sum(self.ms.values())
+        return dict(wall_ms=self.wall_ms, aten_ops=self.ops, **{f"{k}_ms": v for k, v in self.ms.items()},
+                    python_ms=python, collective_calls=self.calls["collectives"],
+                    host_read_calls=self.calls["host_reads"],
+                    by_collective={k: dict(ms=v[0], calls=v[1], bytes=v[2]) for k, v in self.by.items()})
+
+
+def mesh_cfg(torch, spec, arch, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch).reduced() if spec["reduced"] else get_arch(arch)
+    return dataclasses.replace(cfg, **kw)
+
+
+def mesh_batches(torch, cfg, spec, dev):
+    """The parity run's inputs, the same on every rank: train tokens and
+    labels, the prompt, the decode tokens."""
+    gen = torch.Generator().manual_seed(24)
+    b, s = spec["parity_train"]
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, dtype=torch.int32)
+    prompt = torch.randint(0, cfg.vocab, spec["parity_prefill"], generator=gen, dtype=torch.int32)
+    decode = torch.randint(0, cfg.vocab, (spec["decode_steps"], spec["parity_prefill"][0]), generator=gen,
+                           dtype=torch.int32)
+    return ({"tokens": toks.to(dev), "labels": torch.roll(toks, -1, 1).to(dev)}, prompt.to(dev), decode.to(dev))
+
+
+def mesh_serve(torch, model, mesh, prompt, decode, cache_len):
+    """Prefill, then a decode step per row of ``decode``: the logits of each."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    pre = make_prefill_step(model, mesh, cache_len)
+    dec = make_decode_step(model, mesh, prompt.shape[0], cache_len)
+    with torch.no_grad():
+        cache, logits = pre({"tokens": prompt})
+        out = [logits.float()]
+        for t in decode:
+            logits, cache = dec(cache, t)
+            out.append(logits.float())
+    return out
+
+
+def mesh_full(t):
+    from repro_torch.models.sharding import full
+
+    return full(t).detach()
+
+
+def mesh_parity(torch, spec, mesh, dev, rank, arch, policy, serve_policy):
+    """One arch's float32 train step and serving on the mesh against the
+    same steps in one process (rank 0's): the loss, each updated leaf and
+    each logits' largest error over its largest magnitude."""
+    from repro_torch.models import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_all, make_train_step
+
+    cfg = mesh_cfg(torch, spec, arch, dtype="float32", n_layers=spec["parity_layers"], param_sharding=policy)
+    scfg = mesh_cfg(torch, spec, arch, dtype="float32", n_layers=spec["parity_layers"],
+                    param_sharding=serve_policy)
+    oc = OptConfig(**MESH_OPT)
+    batch, prompt, decode = mesh_batches(torch, cfg, spec, dev)
+    cache_len = 2 * prompt.shape[1]
+    model = Model(cfg, device=dev, seed=0)
+    params, opt = init_all(model, oc, mesh)
+    params, opt, met = make_train_step(model, oc, mesh)(params, opt, batch)
+    got = {k: mesh_full(p) for k, p in params.items()}
+    served = mesh_serve(torch, Model(scfg, device=dev, seed=0), mesh, prompt, decode, cache_len)
+    out = dict(arch=arch, policy=policy, serve_policy=serve_policy, loss=float(met["loss"]),
+               overflow=bool(met.get("aux_overflow", False)))
+    if rank == 0:
+        one = Model(cfg, device=dev, seed=0)
+        p1, o1 = init_all(one, oc)
+        p1, o1, m1 = make_train_step(one, oc)(p1, o1, batch)
+        out.update(one_loss=float(m1["loss"]), one_overflow=bool(m1.get("aux_overflow", False)),
+                   loss_rel_err=abs(float(met["loss"]) - float(m1["loss"])) / abs(float(m1["loss"])))
+        errs = {k: float((got[k].float() - p.detach().float()).abs().max() / p.detach().float().abs().max())
+                for k, p in p1.items()}
+        out["leaf_worst"] = max(errs.items(), key=lambda kv: kv[1])
+        del one, p1, o1
+        want = mesh_serve(torch, Model(scfg, device=dev, seed=0), None, prompt, decode, cache_len)
+        out["logits_rel_err"] = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(served, want)]
+    return out
+
+
+def mesh_rank(rank, n, spec):
+    """One rank of ``mesh_path`` (see the phase)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import _build as build
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_all, make_train_step
+
+    mesh = make_mesh(spec["mesh"], ("data", "model"), spec["device"])
+    dev = mesh_device(mesh)
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+    build.reset_counts()
+    out = dict(rank=rank, device=str(dev), backend=dist.get_backend())
+    # the collectives DTensor's redistributes need, on this device, first
+    probe = {}
+    for axis in ("data", "model"):
+        g, p = mesh.get_group(axis), mesh.size(mesh.mesh_dim_names.index(axis))
+        x = torch.arange(4 * p, dtype=torch.float32, device=dev) + rank
+        rs = torch.empty(4, dtype=torch.float32, device=dev)
+        dist.reduce_scatter_tensor(rs, x, group=g)
+        ag = torch.empty(4 * p, dtype=torch.float32, device=dev)
+        dist.all_gather_into_tensor(ag, x[:4].contiguous(), group=g)
+        members = dist.get_process_group_ranks(g)
+        i = members.index(rank)
+        want_rs = sum(torch.arange(4 * p, dtype=torch.float32) + r for r in members)[4 * i: 4 * i + 4]
+        want_ag = torch.cat([torch.arange(4, dtype=torch.float32) + r for r in members])
+        probe[axis] = dict(reduce_scatter_tensor=bool(torch.equal(rs.cpu(), want_rs)),
+                           all_gather_into_tensor=bool(torch.equal(ag.cpu(), want_ag)))
+    out["probe"] = probe
+    out["parity"] = [mesh_parity(torch, spec, mesh, dev, rank, *p) for p in spec["parity"]]
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    # granite at full depth in bf16 with remat: train, then serve
+    cfg = mesh_cfg(torch, spec, LM_ARCH)
+    b, s = spec["train"]
+    model = Model(cfg, device=dev, seed=0)
+    oc = OptConfig()
+    params, opt = init_all(model, oc, mesh)
+    step = make_train_step(model, oc, mesh)
+    shape = ShapeConfig("mesh", s, b, "train")
+    # one step, every rank under the profiler (the card's busy time of each
+    # rank's own work), rank 0's also under the host split; an eager step
+    # compiles nothing, and the parity runs warmed the card for this process
+    data = synthetic_batch(cfg, shape, 0, device=dev)
+    dist.barrier()
+    prof = profile(activities=[ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU])
+    sync()
+    prof.start()
+    host = HostSplit() if rank == 0 else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with host:
+        params, opt, met = step(params, opt, data)
+        loss = float(met["loss"])
+    wall = time.perf_counter() - t0
+    prof.stop()
+    split = device_split(torch, prof) if on_card else {}
+    busy = sum(v[0] for v in split.values()) if on_card else None
+    out.update(train_wall_s=wall, tokens_per_s=b * s / wall, losses=[loss], device_busy_ms=busy,
+               overflow=bool(met.get("aux_overflow", False)))
+    if rank == 0:
+        top = sorted(((ms, k, c) for k, (ms, c) in split.items()), reverse=True)[:8]
+        row = host.row()
+        out["profiled"] = dict(wall_s=wall, device_busy_ms=busy,
+                               top=[dict(op=k[:80], ms=ms, calls=c) for ms, k, c in top],
+                               idle_share=idle_share(busy, wall * 1e3) if on_card else None,
+                               collectives_ms=row["collectives_ms"],
+                               collectives_share=row["collectives_ms"] / (wall * 1e3), host_split=row)
+    out["train_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+    del opt, data
+    model.requires_grad_(False)
+    pb, ps = spec["prefill"]
+    lanes, cache_len = spec["decode"]
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab, (pb, ps), generator=gen, dtype=torch.int32).to(dev)
+    pre = make_prefill_step(model, mesh, ps)
+    with torch.no_grad():
+        pre_walls = []
+        for _ in range(2):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            _, logits = pre({"tokens": prompt})
+            sync()
+            pre_walls.append(time.perf_counter() - t0)
+        out["prefill_wall_s"] = statistics.median(pre_walls)
+        dprompt = torch.randint(0, cfg.vocab, (lanes, cache_len // 2), generator=gen, dtype=torch.int32).to(dev)
+        cache, logits = make_prefill_step(model, mesh, cache_len)({"tokens": dprompt})
+        dec = make_decode_step(model, mesh, lanes, cache_len)
+        tok = logits.argmax(-1).to(torch.int32)
+        dec_walls = []
+        for _ in range(spec["decode_steps"] + 1):
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = dec(cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+            sync()
+            dec_walls.append(time.perf_counter() - t0)
+        out["decode_step_s"] = statistics.median(dec_walls[1:])
+        out["logits_finite"] = bool(torch.isfinite(logits).all())
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+    out["launches"] = build.counts()
+    return out
+
+
+def mesh_one_process(torch, spec, dev):
+    """The same full-width steps in one process on the device: the train
+    step at the same global batch (its wall, device busy time and host
+    split), prefill and decode walls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_all, make_train_step
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = mesh_cfg(torch, spec, LM_ARCH)
+    b, s = spec["train"]
+    model = Model(cfg, device=dev, seed=0)
+    oc = OptConfig()
+    params, opt = init_all(model, oc)
+    step = make_train_step(model, oc)
+    shape = ShapeConfig("mesh", s, b, "train")
+    # a warm step (the process's first on the card), then the step as the
+    # mesh's rank 0 runs it: profiled, under the host split
+    params, opt, met = step(params, opt, synthetic_batch(cfg, shape, 0, device=dev))
+    float(met["loss"])
+    d = synthetic_batch(cfg, shape, 1, device=dev)
+    prof = profile(activities=[ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU])
+    sync()
+    prof.start()
+    with HostSplit() as host:
+        params, opt, met = step(params, opt, d)
+        float(met["loss"])
+    prof.stop()
+    row = host.row()
+    busy = sum(v[0] for v in device_split(torch, prof).values()) if on_card else None
+    out = dict(train_wall_s=row["wall_ms"] / 1e3, device_busy_ms=busy, host_split=row,
+               idle_share=idle_share(busy, row["wall_ms"]) if on_card else None,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None)
+    out["tokens_per_s"] = b * s / out["train_wall_s"]
+    del opt
+    model.requires_grad_(False)
+    pb, ps = spec["prefill"]
+    lanes, cache_len = spec["decode"]
+    gen = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab, (pb, ps), generator=gen, dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        pre = []
+        for _ in range(2):
+            sync()
+            t0 = time.perf_counter()
+            model.prefill({"tokens": prompt}, cache_len=ps)
+            sync()
+            pre.append(time.perf_counter() - t0)
+        dprompt = torch.randint(0, cfg.vocab, (lanes, cache_len // 2), generator=gen, dtype=torch.int32).to(dev)
+        cache, logits = model.prefill({"tokens": dprompt}, cache_len=cache_len)
+        tok = logits.argmax(-1).to(torch.int32)
+        dec = []
+        for _ in range(spec["decode_steps"] + 1):
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+            sync()
+            dec.append(time.perf_counter() - t0)
+    out.update(prefill_wall_s=statistics.median(pre), decode_step_s=statistics.median(dec[1:]))
+    return out
+
+
+def phase_mesh_path(torch, core, build, device="cuda", spec=MESH_SPEC):
+    """The mesh half over DTensor: 4 gloo ranks on one (data 2, model 2)
+    mesh sharing the card (NCCL refuses two ranks of one communicator on
+    one card). First the gloo probe of ``reduce_scatter_tensor`` and
+    ``all_gather_into_tensor`` on the device's tensors; then the float32
+    parity of the mesh's train step, prefill and decode with one process's
+    on the device; then granite at full depth in bf16 with remat: train
+    walls, tokens/s, peak memory a rank, the collectives' share of one
+    profiled rank's wall; prefill and decode walls; the same steps in one
+    process beside them. It launches none of K1-K4."""
+    from repro_torch.launch.mesh import spawn
+
+    import gc
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    one = mesh_one_process(torch, spec, dev)
+    # the one-process model's memory back to the card before the four ranks
+    # take ~17 GiB each (this process keeps its allocator's cache otherwise)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    n = spec["mesh"][0] * spec["mesh"][1]
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, n, backend="gloo", device=device, args=(dict(spec, device=device),))
+    spawn_s = time.perf_counter() - t0
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    for r in ranks:
+        if r["device"].split(":")[0] != device or r["backend"] != "gloo":
+            fail("mesh_path", f"rank {r['rank']} ran on {r['device']} over {r['backend']}")
+        bad = {a: ops for a, ops in r["probe"].items() if not all(ops.values())}
+        if bad:
+            fail("mesh_path", f"rank {r['rank']}: gloo on {device} tensors: {bad}")
+        if not all(math.isfinite(x) for x in r["losses"]) or not r["logits_finite"]:
+            fail("mesh_path", f"rank {r['rank']}: losses {r['losses']}, logits finite {r['logits_finite']}")
+        for name in KERNEL_NAMES:
+            launches[name] += r["launches"].get(name, 0)
+    for par in ranks[0]["parity"]:
+        what = f"{par['arch']} {par['policy']}"
+        if par["overflow"] != par["one_overflow"]:
+            fail("mesh_path", f"{what}: records dropped {par['overflow']}, one process {par['one_overflow']}")
+        if par["loss_rel_err"] > MESH_TOL or par["leaf_worst"][1] > MESH_TOL or max(par["logits_rel_err"]) > MESH_TOL:
+            fail("mesh_path", f"{what}: parity with one process {par}")
+    if any(launches.values()):
+        fail("mesh_path", f"launched {launches}")
+    rank_keys = ("train_wall_s", "tokens_per_s", "train_peak_mem_gib", "peak_mem_gib", "prefill_wall_s",
+                 "decode_step_s", "losses", "overflow", "device_busy_ms")
+    # the card's busy time over the four ranks' step: each rank's own
+    # kernels and copies, summed, over rank 0's wall of that step
+    busy = [r["device_busy_ms"] for r in ranks]
+    card_busy = (sum(busy) / (ranks[0]["train_wall_s"] * 1e3)) if device == "cuda" else None
+    emit({"phase": "mesh_path", "ok": True, "mesh": spec["mesh"], "backend": "gloo", "ranks": n,
+          "transport": "gloo through the host, every rank on one card: says nothing of NVLink",
+          "probe": ranks[0]["probe"], "parity": ranks[0]["parity"], "tol": MESH_TOL, "parity_opt": MESH_OPT,
+          "full": dict(arch=LM_ARCH, dtype="bfloat16", remat=True, train=spec["train"], prefill=spec["prefill"],
+                       decode=spec["decode"], steps=1),
+          "per_rank": {k: [r[k] for r in ranks] for k in rank_keys}, "profiled_rank0": ranks[0]["profiled"],
+          "card_busy_share_of_four_ranks": card_busy,
+          "aten_ops": dict(mesh_rank0=ranks[0]["profiled"]["host_split"]["aten_ops"],
+                           one_process=one["host_split"]["aten_ops"]),
+          "one_process": one, "launches": launches, "spawn_and_run_s": spawn_s,
+          "nvidia_smi": nvidia_smi() if device == "cuda" else None, "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def phase_ladder(torch, core):
     cfg = core.SortConfig(p=128, n_per_proc=8192, **SLICE)
     x = torch.from_numpy(adversarial(cfg.p, cfg.n_per_proc)).cuda()
@@ -3833,7 +4319,8 @@ def main() -> int:
                  "segmented_path": phase_segmented_path, "planner_path": phase_planner_path,
                  "delta_path": phase_delta_path, "lm_path": phase_lm_path,
                  "train_path": phase_train_path, "recurrent_path": phase_recurrent_path,
-                 "audio_path": phase_audio_path, "sharded_path": phase_sharded_path}
+                 "audio_path": phase_audio_path, "sharded_path": phase_sharded_path,
+                 "mesh_path": phase_mesh_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -3893,6 +4380,13 @@ def main() -> int:
     for name in KERNEL_NAMES:
         launches[name] += sharded_launches.get(name, 0)
     emit({"phase": "sharded_launches", "ok": True, "launches": sharded_launches})
+    # nor does the mesh half: its collectives are torch.distributed's, the
+    # MoE dispatch sorts with torch.sort
+    mesh_launches = phase_mesh_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += mesh_launches.get(name, 0)
+    emit({"phase": "mesh_launches", "ok": True, "launches": mesh_launches,
+          "none_as_expected": not any(mesh_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 

@@ -1,6 +1,6 @@
-"""Launchers of the port: ``train`` (the training driver), ``steps`` (the
-serving step factories), ``dryrun`` (the one-device dry-run on ``meta``
-tensors) and ``mesh`` (device meshes over ``torch.distributed`` and a
-local launcher of ranks). The mesh halves of ``steps`` and ``dryrun`` wait
-for the DeviceMesh/DTensor half of the mesh port (ROADMAP.md, queue 1
-item 6)."""
+"""Launchers of the port: ``train`` (the training driver, on one device or
+a ``DeviceMesh``), ``steps`` (the serving step factories, with or without
+a mesh), ``dryrun`` (the dry-run on ``meta`` tensors, on one device or as
+rank 0 of the production mesh in a fake world) and ``mesh`` (device
+meshes over ``torch.distributed``, a local launcher of ranks, and the
+dry-run's fake world)."""

@@ -17,10 +17,12 @@ meet on a ``FileStore`` in a temporary directory (no TCP port is taken),
 over ``gloo`` or ``nccl``, each on the card unless the caller asks for
 the CPU (``cuda`` means ``cuda:{rank % device_count}``: every rank of a
 one-card machine shares ``cuda:0``). :func:`mesh_device` gives a rank its
-device in a mesh.
+device in a mesh. :func:`fake_world` is the dry-run's: one process as
+rank 0 of the production mesh's 256 or 512 ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import tempfile
@@ -31,7 +33,7 @@ import torch.distributed as dist
 
 from ..core.types import resolve_device
 
-__all__ = ["host_device_mesh", "make_mesh", "make_production_mesh", "mesh_device", "spawn"]
+__all__ = ["fake_world", "host_device_mesh", "make_mesh", "make_production_mesh", "mesh_device", "spawn"]
 
 
 def _device_type(device_type: Optional[str]) -> str:
@@ -79,6 +81,24 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: Optional[str] 
     if world == n:
         return make_mesh(shape, axes, device_type)
     return DeviceMesh(_device_type(device_type), torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """This process as rank 0 of a world of ``n`` ranks that do not exist:
+    torch's ``fake`` backend, whose collectives return at once and move
+    nothing. It is the dry-run's, by design (as the ``meta`` device is): a
+    step traced on ``meta`` tensors in it dispatches one rank's local ops
+    and collectives, which the roofline counts. Nothing else uses it."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(rank: int, fn: Callable, n: int, backend: str, device: str, root: str, args: tuple) -> None:

@@ -6,12 +6,18 @@
 The port of the JAX package's ``repro.launch.train``: config registry,
 model, AdamW, the stateless-seeded data pipeline, checkpoint/restart and
 straggler monitoring, on one device (the card unless ``--device`` names
-another). A step's time includes its device work: the driver reads the
-loss back before it stops the step's timer.
+another) or, from a program whose ranks each call :func:`train` with one
+``DeviceMesh``, on that mesh: every rank builds the same seeded model,
+places it (``models.place_model``) and steps on the same global batches;
+checkpoints are gathered whole and written by rank 0, which alone logs.
+A step's time includes its device work: the driver reads the loss back
+before it stops the step's timer.
 """
 from __future__ import annotations
 
 import argparse
+
+import torch.distributed as dist
 
 from ..configs import get_arch
 from ..configs.base import ShapeConfig
@@ -19,6 +25,7 @@ from ..data import synthetic_batch
 from ..models import Model
 from ..optim import OptConfig
 from ..train import checkpoint, elastic, init_all, make_train_step
+from .mesh import mesh_device
 
 
 def train(
@@ -30,24 +37,31 @@ def train(
     ckpt_dir: str | None,
     ckpt_every: int = 50,
     resume: bool = False,
+    mesh=None,
     opt_cfg: OptConfig | None = None,
     log_every: int = 10,
     device=None,
 ):
     """Train ``cfg`` from seed 0 for ``steps`` steps on synthetic batches of
-    ``batch`` × ``seq`` tokens; returns ``(params, opt_state, losses)``."""
+    ``batch`` × ``seq`` tokens; returns ``(params, opt_state, losses)``.
+    With ``mesh`` (a ``DeviceMesh``) the model lives on this rank's device
+    of it unless ``device`` names one."""
+    if mesh is not None and device is None:
+        device = mesh_device(mesh)
+    say = mesh is None or dist.get_rank() == 0
     model = Model(cfg, device=device, seed=0)
     oc = opt_cfg or OptConfig(total_steps=steps, warmup_steps=max(steps // 20, 1))
-    params, opt = init_all(model, oc)
+    params, opt = init_all(model, oc, mesh)
     start = 0
     if resume and ckpt_dir and checkpoint.latest_step(ckpt_dir) is not None:
         start = checkpoint.latest_step(ckpt_dir)
         state = checkpoint.restore(ckpt_dir, start, {"params": params, "opt": opt})
         model.load_state_dict(state["params"])
         opt = state["opt"]
-        print(f"[train] resumed from step {start}")
+        if say:
+            print(f"[train] resumed from step {start}")
 
-    step_fn = make_train_step(model, oc)
+    step_fn = make_train_step(model, oc, mesh)
     shape = ShapeConfig("cli", seq, batch, "train")
     monitor = elastic.StragglerMonitor()
     losses = []
@@ -56,10 +70,10 @@ def train(
         with elastic.StepTimer() as t:
             params, opt, metrics = step_fn(params, opt, data)
             losses.append(float(metrics["loss"]))
-        if monitor.record(t.seconds):
+        if monitor.record(t.seconds) and say:
             print(f"[train] step {step}: straggler threshold tripped — a real "
                   f"cluster driver would re-mesh via elastic.plan_remesh here")
-        if step % log_every == 0 or step == steps - 1:
+        if say and (step % log_every == 0 or step == steps - 1):
             toks = batch * seq / t.seconds
             print(
                 f"[train] step {step:5d} loss {losses[-1]:.4f} "

@@ -154,13 +154,54 @@ def decode_attention(
     return out.reshape(b, 1, h, hd)
 
 
+def decode_attention_sharded(
+    q: torch.Tensor,  # (B, 1, H, hd): every head
+    k_cache: torch.Tensor,  # (B, S_loc, KV, hd): this shard's slice of the sequence
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,  # () or (B,): last valid position, global
+    offset: int,  # the global position of the slice's first row
+    group,  # the process group of the ranks that hold the other slices
+    *,
+    window: int = 0,
+) -> torch.Tensor:
+    """``decode_attention`` over a cache whose sequence is split over a
+    group (the reference's ``cache_specs``, which XLA lowers to
+    flash-decode): each shard takes its partial max, sum and weighted V
+    over its slice in float32, and two all-reduces (max, then one sum of
+    the rescaled sum and V) combine them. A slice with no valid position
+    has max ``NEG_INF``, and its correction against the global max is
+    exactly 0."""
+    import torch.distributed as dist
+
+    b, _, h, hd = q.shape
+    _, sk, kvh, _ = k_cache.shape
+    qg = _gqa_expand(q, kvh)[:, 0]  # (B, KV, rep, hd)
+    scores = torch.einsum("bgrh,btgh->bgrt", qg, k_cache).float()
+    scores = scores / np.float32(np.sqrt(np.float32(hd)))
+    t = offset + torch.arange(sk, device=q.device)[None, :]
+    lane = _lane_pos(pos, b)[:, None]
+    valid = t <= lane
+    if window:
+        valid &= lane - t < window
+    scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(-1)
+    m_all = m.clone()
+    dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(scores - m_all[..., None])
+    o = torch.einsum("bgrt,btgh->bgrh", p, v_cache.float())
+    packed = torch.cat([p.sum(-1)[..., None], o], dim=-1)
+    dist.all_reduce(packed, group=group)
+    out = packed[..., 1:] / packed[..., :1]
+    return out.to(q.dtype).reshape(b, 1, h, hd)
+
+
 def cache_update(
     k_cache: torch.Tensor, v_cache: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor, pos
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write the new token's K/V (B, 1, KV, hd) at ``pos`` (per row), in place.
 
-    A position past the cache's end writes nothing, as the reference's
-    one-hot masked add does (a retired serving lane keeps decoding into
+    A position past the cache's end (or before its start) writes nothing,
+    as the reference's one-hot masked add does (a retired serving lane keeps decoding into
     scratch). The values written and kept equal the reference's; a -0.0
     kept in the cache stays -0.0 here where the reference's ``x * 1 + 0``
     makes it +0.0.
@@ -169,7 +210,9 @@ def cache_update(
     lane = _lane_pos(pos, b).to(k_cache.device)
     rows = torch.arange(b, device=k_cache.device)
     at = lane.clamp(0, sk - 1)
-    past = (lane >= sk)[:, None, None]
+    # a shard of a sequence-sharded cache sees the positions of the shards
+    # before its own as negative: it writes nothing for them either
+    past = ((lane >= sk) | (lane < 0))[:, None, None]
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         cache[rows, at] = torch.where(past, cache[rows, at], new[:, 0])
     return k_cache, v_cache
@@ -180,6 +223,7 @@ __all__ = [
     "NEG_INF",
     "cache_update",
     "decode_attention",
+    "decode_attention_sharded",
     "flash_attention",
     "reference_attention",
 ]

@@ -23,6 +23,10 @@ integer path segments is an ``nn.ModuleList`` (or ``nn.ParameterList``),
 named segments an ``nn.ModuleDict`` (or ``nn.ParameterDict``), so the
 state-dict names are these names.
 
+On a ``DeviceMesh``, :func:`place_model` places the parameters by their
+sanitized specs (``models.sharding``) and :func:`make_mesh_info` gives the
+steps their view of the mesh.
+
 For the dry-run, ``Model.param_shapes(cfg)`` gives the parameters and
 ``model.input_specs(shape)`` every input of a shape's step as tensors on
 the ``meta`` device: shapes and dtypes, no memory. ``Model(cfg,
@@ -39,7 +43,9 @@ from torch import nn
 from ..configs.base import ArchConfig, ShapeConfig
 from ..core.types import resolve_device, to_device
 from . import encdec, hybrid, transformer, xlstm
+from . import sharding as shd
 from .layers import MetaGenerator, dtype_of
+from .moe import MoEMeshInfo
 
 _FAMILY_MODS = {"dense": transformer, "moe": transformer, "vlm": transformer, "hybrid": hybrid,
                 "ssm": xlstm, "audio": encdec}
@@ -89,6 +95,7 @@ class Model(nn.Module):
                  params: Optional[Dict[str, torch.Tensor]] = None) -> None:
         super().__init__()
         self.cfg = cfg
+        self.mesh = None  # set by place_model
         self.device = resolve_device(device)
         if params is None:
             params = self.mod.init_params(cfg, _generator(self.device, seed))
@@ -167,3 +174,47 @@ class Model(nn.Module):
         if cfg.family == "audio":
             specs["frames"] = meta((B, cfg.enc_positions, cfg.d_model), dtype_of(cfg))
         return specs
+
+
+def make_mesh_info(mesh, cfg: ArchConfig) -> Optional[MoEMeshInfo]:
+    """How the model sees ``mesh`` (a ``DeviceMesh``): its model axis and
+    its data axes (``pod`` and ``data``, and ``model`` after them under
+    the ``dp`` policy)."""
+    if mesh is None:
+        return None
+    return MoEMeshInfo(mesh=mesh, model_axis="model", data_axes=shd.dp_axes(mesh, cfg))
+
+
+def model_axis_size(mesh) -> int:
+    names = tuple(mesh.mesh_dim_names)
+    return mesh.shape[names.index("model")] if "model" in names else 1
+
+
+def place_model(model: Model, mesh) -> Model:
+    """Place ``model``'s parameters on ``mesh`` by their sanitized
+    ``param_specs``, in place: each becomes a ``DTensor`` parameter that
+    keeps this rank's block of the tensor it held, which must be the same
+    full tensor on every rank (the same seed, or ``convert``'s output of
+    one parameter tree); nothing is sent. Under the ``dp`` policy every
+    rank keeps its full replica as a plain tensor. Placing again on the
+    same mesh changes nothing."""
+    if getattr(model, "mesh", None) is mesh:
+        return model
+    if getattr(model, "mesh", None) is not None:
+        raise ValueError("the model is already placed on another mesh")
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, not {type(mesh).__name__}")
+    cfg = model.cfg
+    if cfg.param_sharding != "dp":
+        shapes = dict(model.named_parameters())
+        specs = shd.sanitize_specs(mesh, shd.param_specs(cfg, shapes, model_axis_size(mesh)), shapes)
+        for name, p in shapes.items():
+            *path, leaf = name.split(".")
+            owner = model.get_submodule(".".join(path)) if path else model
+            placed = nn.Parameter(shd.place(p.detach(), mesh, specs[name]), requires_grad=p.requires_grad)
+            if isinstance(owner, (nn.ParameterList, nn.ParameterDict)):
+                owner[int(leaf) if isinstance(owner, nn.ParameterList) else leaf] = placed
+            else:
+                setattr(owner, leaf, placed)
+    model.mesh = mesh
+    return model

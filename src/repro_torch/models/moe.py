@@ -32,7 +32,18 @@ stable inverse permutation restoring token order. Paths:
 Each rank passes its own blocks: :func:`token_block` cuts a rank's tokens
 from the global batch and :func:`expert_block` / :func:`ffn_block` its
 weights, as the reference's ``shard_map`` specs do. The router's aux terms
-are averaged and the overflow flag maxed over every axis of the mesh.
+are averaged and the overflow flag maxed over every axis of the mesh; or,
+with ``aux_over`` (the transformer's mesh steps), the aux terms are the
+whole batch's, from the router's statistics summed over the token axes,
+as on one device.
+
+The mesh paths are differentiable, each collective with its own
+transpose: the dispatch's byte-packed ``all_to_all`` sends only the rows'
+gradient back along the reverse exchange (the JAX package's bitcast
+passes none), the combine's exchange is its own transpose
+(``sharding.exchange``), a row-parallel ``psum`` passes each rank its
+gradient unchanged (``sharding.psum``), and a mean over the mesh passes
+1/n of it.
 
 Two choices the reference makes implicitly are explicit here:
 
@@ -64,6 +75,7 @@ from ..configs.base import ArchConfig
 from ..core import routing
 from ..core.api import TierStats
 from ..core.primitives import GroupProcs, LocalProcs
+from . import sharding as shd
 from .layers import _dense, dtype_of, top_k_stable
 
 
@@ -126,7 +138,20 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, d_ff: Optional[int] = None) 
     }
 
 
-def _router(x2d: torch.Tensor, w: torch.Tensor, top_k: int):
+@dataclasses.dataclass(frozen=True)
+class AuxOver:
+    """The router's aux terms as the one-device terms of the whole batch:
+    their token statistics summed over ``axes`` (processor groups of the
+    mesh axes over which the tokens differ). ``redundant`` > 1 when every
+    rank along an axis of that many ranks routes the same tokens and the
+    caller sums their input gradients over it: the statistics then pass
+    1/redundant of their gradient back on each."""
+
+    axes: tuple = ()
+    redundant: int = 1
+
+
+def _router(x2d: torch.Tensor, w: torch.Tensor, top_k: int, aux_over: Optional[AuxOver] = None):
     """Top-k routing. x2d (T, D) -> (probs (T,k), experts (T,k), aux)."""
     logits = x2d.float() @ w
     probs_full = torch.softmax(logits, dim=-1)
@@ -134,15 +159,56 @@ def _router(x2d: torch.Tensor, w: torch.Tensor, top_k: int):
     probs = probs / torch.clamp(probs.sum(-1, keepdim=True), min=1e-9)
     # Shazeer-style load-balance loss + router z-loss
     e = w.shape[-1]
-    me = probs_full.mean(0)
     # a scatter of ones, not bincount: bincount reads its input's maximum
     # back to the host, a sync a layer; integer counts are exact in any order
     flat = experts.reshape(-1)
     ce = torch.zeros(e, device=w.device).scatter_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    lse2 = torch.logsumexp(logits, dim=-1) ** 2
+    if aux_over is not None:
+        return probs, experts.to(torch.int32), _global_aux(probs_full, ce, lse2, top_k, aux_over)
+    me = probs_full.mean(0)
     ce = ce / max(experts.numel(), 1)
     aux_lb = e * torch.sum(me * ce)
-    aux_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    aux_z = torch.mean(lse2)
     return probs, experts.to(torch.int32), {"lb_loss": aux_lb, "z_loss": aux_z}
+
+
+def _global_aux(probs_full, counts, lse2, top_k: int, aux_over: AuxOver) -> Dict:
+    """The aux terms of every token over ``aux_over.axes``: the sums of the
+    router's probabilities, choice counts and squared log-normalizers, and
+    the token count, in one float32 tensor summed over each axis."""
+    e = probs_full.shape[-1]
+    pf, l2 = probs_full, lse2
+    if aux_over.redundant > 1:
+        pf, l2 = shd.scale_grad(pf, 1.0 / aux_over.redundant), shd.scale_grad(l2, 1.0 / aux_over.redundant)
+    t = torch.full((1,), float(probs_full.shape[0]), device=pf.device)
+    packed = torch.cat([pf.sum(0), counts, l2.sum()[None], t])
+    for a in aux_over.axes:
+        packed = shd.psum(packed, a)
+    n_tok = packed[-1]
+    me = packed[:e] / n_tok
+    ce = packed[e : 2 * e] / (n_tok * top_k)
+    return {"lb_loss": e * torch.sum(me * ce), "z_loss": packed[2 * e] / n_tok}
+
+
+# ------------------------------------------------ the EP dispatch
+class _Dispatch(torch.autograd.Function):
+    """The EP dispatch: ONE byte-packed ``all_to_all`` of the records'
+    expert ids and token rows (``core/routing.pack_bytes``). The ids carry
+    no gradient, so the backward sends only the rows' gradient back, along
+    the reverse ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, rows_x, rows_e, procs):
+        ctx.procs = procs
+        fused, metas = routing.pack_bytes([rows_e, rows_x], lead=2)
+        recv_e, recv_x = routing.unpack_bytes(procs.all_to_all(fused[None])[0], metas, lead=2)
+        ctx.mark_non_differentiable(recv_e)
+        return recv_x, recv_e
+
+    @staticmethod
+    def backward(ctx, g_x, g_e):
+        return ctx.procs.all_to_all(g_x.contiguous()[None])[0], None, None
 
 
 def _expert_ffn(x, wg, wu, wd):
@@ -151,7 +217,8 @@ def _expert_ffn(x, wg, wu, wd):
     return (F.silu(g.float()).to(x.dtype) * u) @ wd
 
 
-def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity_factor, lanes: int = 1):
+def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity_factor, lanes: int = 1,
+                      aux_over: Optional[AuxOver] = None, rule: Optional["OneDeviceCap"] = None, rows: int = 1):
     """Grouped-GEMM dispatch on a 2-D token block (paper step 9: stable
     integer sort by expert id → dense (E, C, D)·(E, D, F) GEMMs).
 
@@ -160,17 +227,22 @@ def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity
     own record count: the reference's serving engine decodes its slots as
     ``jax.vmap`` over batch-1 lanes, so each lane's MoE sees T = 1 and
     always has full capacity. With ``lanes=1`` this is the reference's
-    dispatch record for record.
+    dispatch record for record. On a mesh, ``rule`` keeps the records the
+    one-device rule keeps over the whole batch (``x2d`` is ``rows`` rows
+    of this rank's tokens); the kept records of an expert are a prefix of
+    its records here, so its block needs room for at most them.
     """
     T, D = x2d.shape
     E, k = cfg.moe_experts, cfg.moe_top_k
     dev = x2d.device
-    probs, experts, aux = _router(x2d, params["router"], k)
+    probs, experts, aux = _router(x2d, params["router"], k, aux_over)
 
     n = (T // lanes) * k  # records per lane
     # decode/small-batch regime: full capacity (no record may ever drop at
     # serving time); capacity-managed at scale with the overflow flag
     cap = n if n <= 512 else int(-(-n * capacity_factor // E))
+    if rule is not None:
+        cap = min(n, rule.cap)
     N = T * k
     flat_e = experts.reshape(-1).long()  # record i = (token i//k, choice i%k)
     key = (torch.arange(N, device=dev) // n) * E + flat_e  # (lane, expert)
@@ -181,6 +253,8 @@ def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity
     within = torch.arange(N, device=dev) - bounds[sorted_key]
     slot = sorted_key * cap + within
     ok = within < cap
+    if rule is not None:
+        ok = one_device_keep(experts, rows, rule, E)[order]
     aux["overflow"] = torch.any(~ok)
     rows = lanes * E * cap
     slot = torch.where(ok, slot, rows)  # dropped records -> scratch row
@@ -210,6 +284,32 @@ def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity
     return _combine(rec, order, T, k), aux
 
 
+def _local_experts(rows: torch.Tensor, local_e: torch.Tensor, params: Dict, e_loc: int) -> torch.Tensor:
+    """Each received row through its local expert ``local_e`` (0 .. e_loc-1;
+    a padding row, any other id, gives 0): the rows sorted by expert (a
+    permutation, both ways), one host read of the e_loc + 1 counts, and
+    each expert's FFN on its own slice. (The reference runs every local
+    expert on every row and masks: e_loc times the products.) On ``meta``
+    tensors (the dry-run's trace, which cannot read the counts) the rows
+    split evenly over the experts, the products the card runs on an even
+    routing."""
+    w = [(params["w_gate"][e], params["w_up"][e], params["w_down"][e]) for e in range(e_loc)]
+    if rows.is_meta:
+        order = torch.arange(rows.shape[0], device=rows.device)
+        q = rows.shape[0] // e_loc
+        sizes = [q] * e_loc + [rows.shape[0] - q * e_loc]
+    else:
+        key = torch.where((local_e >= 0) & (local_e < e_loc), local_e, torch.full_like(local_e, e_loc)).long()
+        order = torch.sort(key, stable=True).indices
+        sizes = torch.zeros(e_loc + 1, dtype=torch.int64, device=key.device).scatter_add_(
+            0, key, torch.ones_like(key)).tolist()
+    parts = torch.split(rows[order], sizes)
+    outs = [_expert_ffn(parts[e], *w[e]) for e in range(e_loc)] + [torch.zeros_like(parts[-1])]
+    out = torch.empty_like(rows)
+    out[order] = torch.cat(outs)
+    return out
+
+
 def _combine(rec: torch.Tensor, order: torch.Tensor, T: int, k: int) -> torch.Tensor:
     """Sum the sorted records ``rec`` (record ``i`` belongs to token
     ``order[i] // k``) into their T tokens: each token's k records in
@@ -225,10 +325,15 @@ def _combine(rec: torch.Tensor, order: torch.Tensor, T: int, k: int) -> torch.Te
     return y
 
 
-def moe_tp(params: Dict, x: torch.Tensor, cfg: ArchConfig, capacity_factor=1.25, lanes: int = 1):
-    """Grouped-GEMM MoE on one device (``lanes``: see ``_grouped_gemm_moe``)."""
+def moe_tp(params: Dict, x: torch.Tensor, cfg: ArchConfig, capacity_factor=1.25, lanes: int = 1,
+           aux_over: Optional[AuxOver] = None, rule: Optional["OneDeviceCap"] = None):
+    """Grouped-GEMM MoE on one device (``lanes``: see ``_grouped_gemm_moe``).
+    Under the ``dp`` policy each rank runs it on its own (B_loc, S) rows:
+    ``aux_over`` sums the router's statistics and ``rule`` applies the
+    capacity rule over the whole batch; the overflow flag is this rank's."""
     *lead, D = x.shape
-    y, aux = _grouped_gemm_moe(params, x.reshape(-1, D), cfg, capacity_factor, lanes)
+    y, aux = _grouped_gemm_moe(params, x.reshape(-1, D), cfg, capacity_factor, lanes, aux_over, rule,
+                               x.shape[0] if x.dim() == 3 else 1)
     return y.reshape(*lead, D), aux
 
 
@@ -301,7 +406,7 @@ def _reduce_aux(aux: Dict, axes: list, flag: Optional[torch.Tensor] = None) -> D
     terms = [aux[k].float() for k in keys] + ([] if flag is None else [flag.float()])
     packed = torch.stack(terms)
     for a in axes:
-        packed = a.all_reduce(packed)
+        packed = shd.psum(packed, a)  # a mean's backward: 1/n to every rank
     n = math.prod(a.p for a in axes)
     out = {k: (packed[i] / n).to(aux[k].dtype) for i, k in enumerate(keys)}
     if flag is not None:
@@ -310,33 +415,118 @@ def _reduce_aux(aux: Dict, axes: list, flag: Optional[torch.Tensor] = None) -> D
 
 
 def _psum_model(y: torch.Tensor, mesh_info: MoEMeshInfo) -> torch.Tensor:
-    return y if mesh_info.mesh is None else mesh_info.model_procs().all_reduce(y)
+    """The row-parallel sum over the model axis (identity backward)."""
+    return y if mesh_info.mesh is None else shd.psum(y, mesh_info.model_procs())
+
+
+def _finish_aux(aux: Dict, mesh_info: MoEMeshInfo, flag, aux_over: Optional[AuxOver]) -> Dict:
+    """The aux terms leaving a mesh path: averaged over every rank (the
+    reference's ``pmean``), or already the whole batch's under
+    ``aux_over``; ``flag`` raised where any rank raised it."""
+    if aux_over is None:
+        return _reduce_aux(aux, mesh_info.axis_procs(), flag)
+    if flag is not None:
+        for a in mesh_info.axis_procs():
+            flag = a.any(flag)
+        aux = {**aux, "overflow": flag}
+    return aux
 
 
 # -------------------------------------------------------------- the TP path
 def moe_tp_sharded(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo,
-                   capacity_factor=1.25):
+                   capacity_factor=1.25, aux_over: Optional[AuxOver] = None, rule: Optional["OneDeviceCap"] = None,
+                   reduce=None):
     """Grouped-GEMM MoE with the experts' FFN width split over the model
     axis. ``x`` is this rank's (B_loc, S, D) block (``token_block(...,
     seq_shard=False)``), ``params`` its :func:`ffn_block`. The only
     collective is ONE ``all_reduce`` of the (T_loc, D) output over the
-    model axis, the row-parallel reduction."""
+    model axis, the row-parallel reduction. The transformer's mesh steps
+    pass ``aux_over`` and ``rule`` (the whole batch's aux terms and
+    capacity rule, as on one device) and ``reduce``, which takes the
+    (B_loc, S, D) partial sums in place of that ``all_reduce`` (they
+    reduce-scatter them into their residual layout)."""
     bl, sl, D = x.shape
-    y, aux = _grouped_gemm_moe(params, x.reshape(-1, D), cfg, capacity_factor)
-    y = _psum_model(y, mesh_info)
+    y, aux = _grouped_gemm_moe(params, x.reshape(-1, D), cfg, capacity_factor, aux_over=aux_over, rule=rule,
+                               rows=bl)
+    y = y.reshape(bl, sl, D)
+    y = _psum_model(y, mesh_info) if reduce is None else reduce(y)
     ov = aux.pop("overflow")
-    return y.reshape(bl, sl, D), _reduce_aux(aux, mesh_info.axis_procs(), ov)
+    return y, _finish_aux(aux, mesh_info, ov, aux_over)
 
 
 # --------------------------------------------------------- the EP (a2a) path
+@dataclasses.dataclass(frozen=True)
+class OneDeviceCap:
+    """The one-device capacity rule on a mesh: ``cap`` records an expert
+    over the whole batch, kept in the batch's token order (rows of (B, S)
+    in order, a token's choices in order), the rest dropped, as
+    ``_grouped_gemm_moe`` drops them on one device. A rank holds rows
+    ``B_loc`` of the batch (split over ``batch``, processor groups in the
+    mesh's order, the first major) and, with ``seq`` (the model axis'
+    group), a slice of each row's positions."""
+
+    cap: int
+    batch: tuple = ()
+    seq: object = None
+
+
+def one_device_keep(experts: torch.Tensor, rows: int, rule: OneDeviceCap, n_experts: int) -> torch.Tensor:
+    """Which of this rank's records (``experts``: (T_loc, k), T_loc =
+    ``rows`` local rows of positions in order) the one-device rule keeps:
+    those with fewer than ``rule.cap`` records of their expert before them
+    in the batch. Counts of each (row, expert) are gathered over the model
+    axis and each row's totals over the batch axes: small integer
+    collectives."""
+    e = experts.reshape(rows, -1).long()  # (rows, R): a row's records in order
+    n_rec = e.numel()
+    # same-expert records before each one in its row: a stable sort by
+    # (row, expert) and each record's place in its group
+    key = (torch.arange(rows, device=e.device)[:, None] * n_experts + e).reshape(-1)
+    order = torch.sort(key, stable=True).indices
+    sorted_key = key[order]
+    first = torch.searchsorted(sorted_key, torch.arange(rows * n_experts, device=e.device))
+    in_row = torch.empty_like(key)
+    in_row[order] = torch.arange(n_rec, device=e.device) - first[sorted_key]
+    in_row = in_row.reshape(rows, -1)
+    counts = torch.zeros(rows * n_experts, dtype=torch.int64, device=e.device).scatter_add_(
+        0, key, torch.ones_like(key)).reshape(rows, n_experts)  # (rows, E)
+    if rule.seq is not None:  # the row's earlier positions lie on the lower model ranks
+        every = rule.seq.gather_rows(counts[None])  # (p, rows, E)
+        earlier = every[: rule.seq.index].sum(0)
+        row_tot = every.sum(0)
+    else:
+        earlier, row_tot = torch.zeros_like(counts), counts
+    prev_rows = torch.cumsum(row_tot, 0) - row_tot
+    blocks, index = row_tot.sum(0)[None], 0  # (1, E): this rank's rows' totals
+    for g in reversed(rule.batch):  # the minor axis first: block index = major * size + minor
+        blocks = g.gather_rows(blocks[None]).reshape(-1, n_experts)
+    for g in rule.batch:
+        index = index * g.p + g.index
+    offset = blocks[:index].sum(0) + prev_rows + earlier  # (rows, E)
+    rank = torch.gather(offset, 1, e) + in_row
+    return (rank < rule.cap).reshape(-1)
+
+
 def moe_ep(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo,
-           capacity_factor=1.25, pair_cap_override: Optional[int] = None):
+           capacity_factor=1.25, pair_cap_override: Optional[int] = None, aux_over: Optional[AuxOver] = None,
+           rule: Optional[OneDeviceCap] = None):
     """Expert-parallel MoE over the model axis.
 
     ``x`` is this rank's (B_loc, S_loc, D) block (:func:`token_block`),
     ``params`` its :func:`expert_block`: the router and its e_loc = E / p
-    experts. ``pair_cap_override`` pins the per-(src, dst) row capacity:
-    ``moe_ep_safe(route="radix")`` passes the counted maximum there.
+    experts. The per-(src, dst) row capacity is ⌈n·cf/p⌉ for n = this
+    rank's records; ``pair_cap_override`` pins it
+    (``moe_ep_safe(route="radix")`` passes the counted maximum there);
+    ``capacity_factor=None`` sizes it to the largest count of records a
+    rank sends a rank over the model axis (one host read; on ``meta``
+    tensors, which hold no counts, an even routing's ⌈n/p⌉), so the
+    exchange drops nothing and carries no row more than the fullest pair
+    needs. ``aux_over`` makes the aux terms the whole batch's; ``rule``
+    drops the records the one-device capacity rule drops
+    (:func:`one_device_keep`) before the exchange, and raises the flag
+    for them. The exchanges are
+    differentiable: the backward sends the rows' gradients back along the
+    reverse exchanges (:class:`_Dispatch`, ``sharding.exchange``).
     """
     procs = mesh_info.model_procs()
     p = procs.p
@@ -348,49 +538,55 @@ def moe_ep(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInf
     dev = x.device
     x2d = x.reshape(-1, D)
     t_loc = x2d.shape[0]
-    probs, experts, aux = _router(x2d, params["router"], k)
+    probs, experts, aux = _router(x2d, params["router"], k, aux_over)
 
     n = t_loc * k
-    if pair_cap_override is not None:
-        pair_cap = min(int(pair_cap_override), n)
-    else:
-        pair_cap = int(-(-n * capacity_factor // p))
-    cap = p * pair_cap
 
-    # paper step 9: stable integer sort of the records by expert id
+    # paper step 9: stable integer sort of the records by expert id (a
+    # record the capacity rule drops takes id E: after every shard's)
     flat_e = experts.reshape(-1)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    if rule is not None:
+        keep = one_device_keep(experts, bl, rule, E)
+        flag = ~keep.all()
+        flat_e = torch.where(keep, flat_e, torch.full((), E, dtype=flat_e.dtype, device=dev))
     order = torch.sort(flat_e, stable=True).indices
     sorted_e = flat_e[order]
     dest = sorted_e // e_loc  # destination shard, contiguous in sorted order
     bounds = torch.searchsorted(dest, torch.arange(p + 1, dtype=dest.dtype, device=dev), side="left").to(torch.int32)
     counts = torch.diff(bounds)
-    aux = _reduce_aux(aux, mesh_info.axis_procs(), torch.any(counts > pair_cap))
+    if pair_cap_override is not None:
+        pair_cap = min(int(pair_cap_override), n)
+    elif capacity_factor is not None:
+        pair_cap = int(-(-n * capacity_factor // p))
+    elif x.is_meta:
+        pair_cap = -(-n // p)
+    else:
+        pair_cap = max(1, int(procs.max(counts.max())))
+    cap = p * pair_cap
+    aux = _finish_aux(aux, mesh_info, flag | torch.any(counts > pair_cap), aux_over)
 
     # paper steps 10-11: segment rows + ONE all_to_all of the byte-packed
     # expert ids and token rows (the fused h-relation of core/routing)
     tix = torch.arange(pair_cap, device=dev)[None, :]
-    gidx = torch.clamp(bounds[:-1, None] + tix, 0, n - 1).long()
+    # a padding row's index is a placeholder (its row is zeroed), spread so
+    # that the gathers' backward finds no long run of one repeated index
+    gidx = ((bounds[:-1, None] + tix) % n).long()
     valid = tix < counts[:, None]
     rows_e = torch.where(valid, sorted_e[gidx], torch.full((), -1, dtype=sorted_e.dtype, device=dev))
-    sorted_tok = x2d[order // k]  # record i <-> token order[i] // k
+    # record i <-> token order[i] // k, as a broadcast and a permutation
+    sorted_tok = x2d[:, None, :].expand(t_loc, k, D).reshape(n, D)[order]
     zero = torch.zeros((), dtype=x.dtype, device=dev)
     rows_x = torch.where(valid[..., None], sorted_tok[gidx], zero)
-    fused, metas = routing.pack_bytes([rows_e, rows_x], lead=2)
-    recv_e, recv_x = routing.unpack_bytes(procs.all_to_all(fused[None])[0], metas, lead=2)
+    recv_x, recv_e = _Dispatch.apply(rows_x, rows_e, procs)
 
-    # local experts, masked over the e_loc experts of this shard
+    # the local experts, each on its own received rows
     me = 0 if mesh_info.mesh is None else procs.index
-    flat_re = recv_e.reshape(cap)
-    flat_rx = recv_x.reshape(cap, D)
-    out = torch.zeros_like(flat_rx)
-    for e in range(e_loc):
-        sel = flat_re == me * e_loc + e
-        y_e = _expert_ffn(flat_rx, params["w_gate"][e], params["w_up"][e], params["w_down"][e])
-        out = torch.where(sel[:, None], y_e, out)
+    out = _local_experts(recv_x.reshape(cap, D), recv_e.reshape(cap) - me * e_loc, params, e_loc)
 
     # the reverse all_to_all, back to the source's sorted order; a record's
     # output came back in row i at t, its sorted position bounds[i] + t
-    back = procs.all_to_all(out.reshape(1, p, pair_cap, D))[0]
+    back = shd.exchange(out.reshape(1, p, pair_cap, D), procs)[0]
     src_pos = torch.where(valid, bounds[:-1, None] + tix, n).reshape(-1).long()
     sorted_out = torch.zeros((n + 1, D), dtype=x.dtype, device=dev)
     sorted_out[src_pos] = back.reshape(-1, D)  # unsent records read row n
@@ -490,7 +686,8 @@ def moe_ep_safe(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMe
     raise RuntimeError("EP capacity escalation exhausted — unreachable: the full tier holds every record")
 
 
-def moe_ep_decode(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo):
+def moe_ep_decode(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInfo,
+                  aux_over: Optional[AuxOver] = None):
     """EP MoE for few tokens (decode): every model shard evaluates its
     experts on every token of its data shard, combined by one
     ``all_reduce``: no all-to-all, no capacity. ``x`` is this rank's
@@ -501,13 +698,13 @@ def moe_ep_decode(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoE
     e_loc = E // p
     bl, sl, D = x.shape
     x2d = x.reshape(-1, D)
-    probs, experts, aux = _router(x2d, params["router"], k)
+    probs, experts, aux = _router(x2d, params["router"], k, aux_over)
     me = 0 if mesh_info.mesh is None else mesh_info.index(mesh_info.model_axis)
     y = torch.zeros_like(x2d)
     for e in range(e_loc):
         w_tok = (probs * (experts == me * e_loc + e)).sum(-1).to(x.dtype)  # (T,)
         y = y + w_tok[:, None] * _expert_ffn(x2d, params["w_gate"][e], params["w_up"][e], params["w_down"][e])
     y = _psum_model(y, mesh_info)
-    aux = _reduce_aux(aux, mesh_info.axis_procs())
+    aux = _finish_aux(aux, mesh_info, None, aux_over)
     aux["overflow"] = torch.zeros((), dtype=torch.bool, device=x.device)
     return y.reshape(bl, sl, D), aux

@@ -1,8 +1,8 @@
 """Decoder-only transformer LM (families: dense, moe, vlm).
 
-The port of the JAX package's ``repro.models.transformer`` on one device:
-pre-norm GQA attention with RoPE, SwiGLU or MoE MLP, optional sliding
-window (mixtral). The VLM family receives stub patch embeddings that
+The port of the JAX package's ``repro.models.transformer``: pre-norm GQA
+attention with RoPE, SwiGLU or MoE MLP, optional sliding window
+(mixtral). The VLM family receives stub patch embeddings that
 overwrite the first ``vision_tokens`` positions.
 
 ``params`` is a :class:`repro_torch.models.Model` (or anything with its
@@ -18,9 +18,16 @@ A cache is ``{"k", "v": (L, B, S_max, KV, hd), "pos"}``; ``pos`` is a
 scalar (every row at one position, the reference's ``decode_step``) or one
 position per row: B independent lanes, as the reference's engine decodes
 its slots under ``jax.vmap`` (each lane's MoE then has its own capacity).
+
+Each entry point takes ``mesh_info`` as the reference's do
+(``models.make_mesh_info``): with a mesh, every rank runs the step on its
+block of the global inputs (see :class:`_MeshStep`), with the one-device
+step's result: the same loss, the logits as one full tensor on every
+rank, a cache placed by the sanitized ``cache_specs``.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -29,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from . import attention as attn
 from . import moe as moe_mod
+from . import sharding as shd
 from .layers import _dense, dtype_of, init_attn, init_mlp, next_token_loss, rmsnorm, rope
 
 
@@ -70,8 +78,8 @@ def _attention_block(cfg, lp, h, positions, *, window):
 
 
 def _mlp_block(cfg, lp, h, mesh_info=None, lanes: int = 1):
-    """SwiGLU, or the MoE layer (``lanes``: see ``moe._grouped_gemm_moe``).
-    ``mesh_info`` must be ``None`` or a mesh-less ``MoEMeshInfo``."""
+    """SwiGLU, or the MoE layer (``lanes``: see ``moe._grouped_gemm_moe``),
+    on one device (the mesh's four-way choice is :func:`_mesh_mlp`)."""
     if not cfg.moe_experts:
         g = h @ lp["w_gate"]
         u = h @ lp["w_up"]
@@ -114,6 +122,8 @@ def forward_train(
     extras: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     extras = extras or {}
+    if _on_mesh(mesh_info):
+        return _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras)
     b, s = tokens.shape
     x = _embed(cfg, params, tokens, extras)
     positions = _positions(b, s, x.device)
@@ -155,6 +165,8 @@ def prefill(
 ) -> Tuple[Dict, torch.Tensor]:
     """Run the prompt, build the KV cache. Returns (cache, last logits)."""
     extras = extras or {}
+    if _on_mesh(mesh_info):
+        return _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len)
     b, s = tokens.shape
     cache_len = cache_len or s
     x = _embed(cfg, params, tokens, extras)
@@ -186,6 +198,8 @@ def decode_step(
 ) -> Tuple[torch.Tensor, Dict]:
     """One autoregressive step; ``cache['pos']`` is the last filled position
     (a scalar, or one per lane). The cache's K/V are updated in place."""
+    if _on_mesh(mesh_info):
+        return _decode_step_mesh(cfg, params, cache, token, mesh_info)
     b = token.shape[0]
     pos = cache["pos"] + 1  # position of the new token
     lanes = b if pos.dim() == 1 else 1
@@ -220,3 +234,444 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int) -> Dict[str, torch
         "v": torch.empty(shape, dtype=dt, device="meta"),
         "pos": torch.empty((), dtype=torch.int32, device="meta"),
     }
+
+
+# ------------------------------------------------------------ the mesh steps
+def _on_mesh(mesh_info) -> bool:
+    return mesh_info is not None and mesh_info.mesh is not None
+
+
+class _MeshStep:
+    """One step's layout on the mesh (the reference's GSPMD annotations,
+    made explicit).
+
+    Weights are ``DTensor`` parameters placed by ``sharding.param_specs``
+    (plain tensors, each rank a full replica, under the ``dp`` policy);
+    :meth:`fetch` gives a layer its local block, gathering the FSDP
+    shards, and names how the local gradient relates to the stored one:
+    ``Shard`` where the weight is used split over the model axis,
+    ``Partial`` (a sum over ranks) over the axes whose ranks hold other
+    tokens, ``Replicate`` where every rank computed the same gradient.
+
+    Activations are local tensors of the global (B, S, ...) batch: B over
+    the data axes (:attr:`bax`, the sanitized prefix that divides it), S
+    over the model axis between blocks when ``cfg.seq_shard_activations``
+    holds and S divides (:attr:`sp`, Megatron-SP). Inside a block the
+    sequence is gathered once before the column-parallel products and the
+    row-parallel output is reduce-scattered back (:meth:`gather_seq`,
+    :meth:`reduce_seq`), each collective with its transpose as its
+    backward (``sharding``'s explicit collectives: ``DTensor``'s own
+    all-gather crashes under gloo on CUDA tensors). Under the ``dp``
+    policy the model axis is one more data axis, and a block is the
+    one-device block on local tokens.
+    """
+
+    def __init__(self, cfg: ArchConfig, mesh_info, b: int, s: int):
+        from ..core.primitives import GroupProcs
+
+        self.cfg, self.mi, self.b, self.s = cfg, mesh_info, b, s
+        self.mesh = mesh_info.mesh
+        self.names = tuple(self.mesh.mesh_dim_names)
+        self.model = mesh_info.model_axis
+        self.tp = self.model not in mesh_info.data_axes
+        self.m = mesh_info.model_size if self.tp else 1
+        self.rank_m = mesh_info.index(self.model) if self.tp else 0
+        entry = shd.sanitize_specs(self.mesh, shd.Spec(tuple(mesh_info.data_axes)),
+                                   torch.empty((b,), device="meta"))[0]
+        self.bax = shd.axes_of(entry)  # the axes the batch splits over
+        self.sp = self.tp and cfg.seq_shard_activations and s > 1 and s % self.m == 0
+        self.tok = self.bax + ((self.model,) if self.sp else ())  # axes of distinct tokens
+        if self.tp and (cfg.n_heads % self.m or (cfg.d_ff and cfg.d_ff % self.m)):
+            raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} heads and d_ff {cfg.d_ff} must divide "
+                                      f"the model axis ({self.m}) for tensor parallelism")
+        self.procs = {a: GroupProcs.from_mesh(self.mesh, a) for a in self.names}
+        self.block_rows = shd.local_block(self.mesh, shd.Spec(entry), (b,))[0]
+
+    # ----------------------------------------------------------- layouts
+    def shard_residual(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_shard_residual``: the embedded (B_loc, S, D)
+        block (every model rank alike) to the residual layout, S over the
+        model axis under SP; its gradient gathered on the way back."""
+        return shd.split(x, self.procs[self.model], 1) if self.sp else x
+
+    def gather_seq(self, h: torch.Tensor) -> torch.Tensor:
+        """The residual-layout ``h`` as the full sequence on every model
+        rank (the reference's ``_head_shard`` point: the column-parallel
+        products then give head-split q, k, v), its gradient summed over
+        the model axis on the way back (reduce-scattered under SP,
+        all-reduced otherwise)."""
+        if not self.tp:
+            return h
+        mp = self.procs[self.model]
+        return shd.gather(h, mp, 1) if self.sp else shd.sum_grad(h, mp)
+
+    def reduce_seq(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums (full sequence) summed over
+        the model axis into the residual layout (reduce-scattered under
+        SP, all-reduced otherwise); the gradient passes back unsummed."""
+        if not self.tp:
+            return y
+        mp = self.procs[self.model]
+        return shd.scatter_sum(y, mp, 1) if self.sp else shd.psum(y, mp)
+
+    def gather_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """(B_loc, S, h_loc, hd) head-split over the model axis -> every
+        head (serving: no gradient)."""
+        return shd.all_gather(t, self.procs[self.model], 2)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A (B_loc, ...) block -> the full (B, ...) tensor on every rank."""
+        for a in reversed(self.bax):
+            t = shd.all_gather(t, self.procs[a], 0)
+        return t
+
+    def fetch(self, w, model_dim: Optional[int] = None, partial: tuple = ()) -> torch.Tensor:
+        """This rank's block of parameter ``w`` for its products: dimension
+        ``model_dim`` split over the model axis as stored (or every
+        dimension whole), the FSDP shards gathered. Its gradient is a
+        partial sum over the axes in ``partial`` (``Partial``), the same
+        on every rank of the others (``Replicate``), this rank's block
+        where stored split (``Shard``, the gathers' backward
+        reduce-scattering the partial sums)."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        if not isinstance(w, DTensor):
+            return w
+        gather_axes, grad = {}, []
+        for a, p in zip(self.names, w.placements):
+            keep = a == self.model and model_dim is not None and self.tp
+            if isinstance(p, Shard):
+                if keep and p.dim != model_dim:
+                    raise ValueError(f"a weight split on {p.dim} over {a} used split on {model_dim}")
+                if not keep:
+                    gather_axes[a] = (self.procs[a], a in partial)
+                grad.append(p)
+            elif keep:
+                raise ValueError(f"a weight stored whole over {a} used split on {model_dim}")
+            else:
+                grad.append(Partial() if a in partial else Replicate())
+        return shd.local_of(w, gather_axes, grad)
+
+    def aux_over(self, axes: tuple, redundant: int = 1):
+        return moe_mod.AuxOver(tuple(self.procs[a] for a in axes), redundant)
+
+    def psum(self, t: torch.Tensor, axes: tuple) -> torch.Tensor:
+        for a in axes:
+            t = shd.psum(t, self.procs[a])
+        return t
+
+
+def _kv_for_heads(cfg, ms: _MeshStep, t: torch.Tensor) -> torch.Tensor:
+    """Every KV head (B, S, KV, hd) -> the heads this rank's query heads
+    read: query head g reads KV head g // (H / KV), so a local query head
+    meets its own KV head, not the first local one."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    hq, rep = H // ms.m, H // KV
+    heads = [(ms.rank_m * hq + j) // rep for j in range(hq)]
+    lo, n = heads[0], heads[-1] - heads[0] + 1
+    if hq % n == 0 and heads == [lo + j // (hq // n) for j in range(hq)]:
+        return t[:, :, lo : lo + n]  # each local KV head serves hq / n query heads
+    return t[:, :, torch.tensor(heads, device=t.device)]  # one KV row per query head
+
+
+def _mesh_qkv(cfg, ms: _MeshStep, lp, hf: torch.Tensor):
+    """Column-parallel q, k, v of the full-sequence ``hf``: this rank's
+    query heads; its KV heads when they split over the model axis, else
+    every KV head (the weights replicated, their gradient a partial sum
+    over the model axis: each rank's query heads add to it). Returns
+    (q, k, v, k and v head-split)."""
+    b, s, _ = hf.shape
+    H, KV, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.hd, ms.m
+    q = (hf @ ms.fetch(lp["wq"], 1, ms.bax)).reshape(b, s, H // m, hd)
+    if KV % m == 0:
+        k = (hf @ ms.fetch(lp["wk"], 1, ms.bax)).reshape(b, s, KV // m, hd)
+        v = (hf @ ms.fetch(lp["wv"], 1, ms.bax)).reshape(b, s, KV // m, hd)
+        return q, k, v, True
+    part = ms.bax + (ms.model,)
+    k = (hf @ ms.fetch(lp["wk"], None, part)).reshape(b, s, KV, hd)
+    v = (hf @ ms.fetch(lp["wv"], None, part)).reshape(b, s, KV, hd)
+    return q, k, v, False
+
+
+def _mesh_attention(cfg, ms: _MeshStep, lp, h, positions, *, window):
+    """The attention block on the mesh (train and prefill): the sequence
+    gathered once (the reference's ``_head_shard`` point: the products
+    give head-split q, k, v directly), attention over this rank's heads,
+    the row-parallel output reduce-scattered. Returns (out, (k, v,
+    head-split)) with k, v roped, for the cache."""
+    hf = ms.gather_seq(h)
+    b, s, _ = hf.shape
+    q, k, v, split = _mesh_qkv(cfg, ms, lp, hf)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    ka, va = (k, v) if split else (_kv_for_heads(cfg, ms, k), _kv_for_heads(cfg, ms, v))
+    if s > 1:
+        o = attn.flash_attention(q, ka, va, causal=True, window=window)
+    else:
+        o = attn.reference_attention(q, ka, va, causal=True, window=window)
+    o = o.reshape(b, s, -1) @ ms.fetch(lp["wo"], 0, ms.bax)
+    return ms.reduce_seq(o), (k, v, split)
+
+
+def _mesh_mlp(cfg, ms: _MeshStep, lp, h):
+    """The reference's four-way ``_mlp_block`` on the mesh: ``moe_tp`` on
+    local tokens under the ``dp`` policy; ``moe_ep`` (S > 1) or
+    ``moe_ep_decode`` when the experts cover the model axis; else the
+    experts' FFN width split over it (``moe_tp_sharded``, its sum
+    reduce-scattered into the residual layout). Every MoE path's aux terms
+    are the whole batch's, as on one device. A dense MLP is column- then
+    row-parallel."""
+    if not ms.tp:
+        p = {k: ms.fetch(lp[k]) for k in lp.keys() if k not in ("attn_norm", "mlp_norm")}
+        if not cfg.moe_experts:
+            return _mlp_block(cfg, p, h)
+        moe_params = {k: p[k] for k in ("router", "w_gate", "w_up", "w_down")}
+        y, aux = moe_mod.moe_tp(moe_params, h, cfg, aux_over=ms.aux_over(ms.tok), rule=_batch_rule(cfg, ms))
+        return y, {**aux, "overflow": _any(ms, aux["overflow"])}
+    if not cfg.moe_experts:
+        hf = ms.gather_seq(h)
+        g = hf @ ms.fetch(lp["w_gate"], 1, ms.bax)
+        u = hf @ ms.fetch(lp["w_up"], 1, ms.bax)
+        hh = torch.nn.functional.silu(g.float()).to(h.dtype) * u
+        return ms.reduce_seq(hh @ ms.fetch(lp["w_down"], 0, ms.bax)), {}
+    E = cfg.moe_experts
+    if E >= ms.m:
+        if E % ms.m:
+            raise ValueError(f"the EP path needs the {E} experts divisible by the model axis ({ms.m})")
+        if ms.s > 1 and not ms.sp and torch.is_grad_enabled():
+            raise NotImplementedError("an EP train step needs the sequence split over the model axis")
+        params = {"router": ms.fetch(lp["router"], None, ms.tok),
+                  **{k: ms.fetch(lp[k], 0, ms.bax) for k in ("w_gate", "w_up", "w_down")}}
+        if ms.s > 1:
+            # the one-device rule: a batch of at most 512 records keeps every
+            # record; a larger one keeps ceil(n·cf/E) records an expert in the
+            # batch's order. The exchange is sized to the kept records'
+            # largest (src, dst) count (a capacity guess that overflowed
+            # would part the mesh from one device)
+            n = ms.b * ms.s * cfg.moe_top_k
+            rule = None
+            if n > 512:
+                rule = moe_mod.OneDeviceCap(int(-(-n * 1.25 // E)), tuple(ms.procs[a] for a in ms.bax),
+                                            ms.procs[ms.model] if ms.sp else None)
+            return moe_mod.moe_ep(params, h, cfg, ms.mi, capacity_factor=None, aux_over=ms.aux_over(ms.tok),
+                                  rule=rule)
+        return moe_mod.moe_ep_decode(params, h, cfg, ms.mi, aux_over=ms.aux_over(ms.bax, ms.m))
+    # experts replicated, their FFN width split: the router runs on the same
+    # tokens on every model rank, so its statistics pass 1/m of their
+    # gradient back on each (the gathered input's backward sums them)
+    params = {"router": ms.fetch(lp["router"], None, ms.bax + (ms.model,)),
+              "w_gate": ms.fetch(lp["w_gate"], 2, ms.bax), "w_up": ms.fetch(lp["w_up"], 2, ms.bax),
+              "w_down": ms.fetch(lp["w_down"], 1, ms.bax)}
+    return moe_mod.moe_tp_sharded(params, ms.gather_seq(h), cfg, ms.mi, aux_over=ms.aux_over(ms.bax, ms.m),
+                                  rule=_batch_rule(cfg, ms), reduce=ms.reduce_seq)
+
+
+def _batch_rule(cfg, ms: _MeshStep):
+    """The one-device capacity rule over the whole batch for a MoE path
+    whose ranks hold whole rows (the ``dp`` policy, the FFN-split experts);
+    none for a batch of at most 512 records, which keeps them all."""
+    n = ms.b * ms.s * cfg.moe_top_k
+    if n <= 512:
+        return None
+    return moe_mod.OneDeviceCap(int(-(-n * 1.25 // cfg.moe_experts)), tuple(ms.procs[a] for a in ms.bax))
+
+
+def _any(ms: _MeshStep, flag: torch.Tensor) -> torch.Tensor:
+    for a in ms.names:
+        flag = ms.procs[a].any(flag)
+    return flag
+
+
+def _mesh_block(cfg, ms: _MeshStep, x, lp, positions):
+    h = rmsnorm(x, ms.fetch(lp["attn_norm"], None, ms.tok), cfg.norm_eps)
+    if ms.tp:
+        o, kv = _mesh_attention(cfg, ms, lp, h, positions, window=cfg.sliding_window)
+    else:
+        p = {k: ms.fetch(lp[k]) for k in ("wq", "wk", "wv", "wo")}
+        o, (k, v) = _attention_block(cfg, p, h, positions, window=cfg.sliding_window)
+        kv = (k, v, False)
+    x = x + o
+    h2 = rmsnorm(x, ms.fetch(lp["mlp_norm"], None, ms.tok), cfg.norm_eps)
+    y, aux = _mesh_mlp(cfg, ms, lp, h2)
+    return x + y, aux, kv
+
+
+def _mesh_block_train(cfg, ms, x, lp, positions):
+    x, aux, _ = _mesh_block(cfg, ms, x, lp, positions)
+    return x, aux
+
+
+def _mesh_embed(cfg, ms: _MeshStep, params, tokens, extras):
+    """This rank's rows of the embedded batch, in the residual layout."""
+    rows = ms.block_rows
+    x = _embed_rows(cfg, ms.fetch(params.embed, None, ms.bax), tokens[rows],
+                    {k: v[rows] for k, v in extras.items()})
+    return ms.shard_residual(x)
+
+
+def _embed_rows(cfg, table, tokens, extras):
+    x = torch.nn.functional.embedding(tokens.long(), table)
+    if cfg.family == "vlm" and extras.get("patch_embeds") is not None:
+        pe = extras["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
+
+
+def _seq_offset(ms: _MeshStep, s_loc: int) -> int:
+    return ms.rank_m * s_loc if ms.sp else 0
+
+
+def _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras):
+    """``forward_train`` on a mesh: the same loss as on one device. Each
+    rank sums the next-token losses of its own positions (the labels of
+    its rows are whole on every model rank), and one ``psum`` of (sum,
+    count) over the axes of distinct tokens gives every rank the mean."""
+    b, s = tokens.shape
+    ms = _MeshStep(cfg, mesh_info, b, s)
+    if ms.tp and not ms.sp:
+        raise NotImplementedError(f"a tensor-parallel train step needs the sequence ({s}) split over the "
+                                  f"model axis ({ms.m}) and cfg.seq_shard_activations")
+    x = _mesh_embed(cfg, ms, params, tokens, extras)
+    positions = _positions(x.shape[0], s, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    auxs = []
+    for lp in params.layers:
+        if remat:
+            x, aux = checkpoint(_mesh_block_train, cfg, ms, x, lp, positions,
+                                use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, aux = _mesh_block_train(cfg, ms, x, lp, positions)
+        auxs.append(aux)
+    x = rmsnorm(x, ms.fetch(params.final_norm, None, ms.tok), cfg.norm_eps)
+    logits = (x @ ms.fetch(params.lm_head, None, ms.tok)).float()
+    s_loc = x.shape[1]
+    pos = _seq_offset(ms, s_loc) + torch.arange(s_loc, device=x.device)
+    gold_at = torch.clamp(pos + 1, max=s - 1)
+    lab = labels[ms.block_rows][:, gold_at].long()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(logits, -1, lab[..., None])[..., 0]
+    valid = pos < s - 1
+    if cfg.family == "vlm":
+        valid = valid & (pos + 1 >= cfg.vision_tokens)
+    w = valid.to(nll.dtype).expand_as(nll)
+    packed = ms.psum(torch.stack([torch.sum(nll * w), torch.sum(w)]), ms.tok)
+    loss = packed[0] / torch.clamp(packed[1], min=1.0)
+    aux = {}
+    if auxs and auxs[0]:
+        aux = {k: (torch.stack([a[k] for a in auxs]).sum() if k != "overflow"
+                   else torch.stack([a[k] for a in auxs]).any()) for k in auxs[0]}
+    if cfg.moe_experts:
+        loss = loss + 0.01 * aux.get("lb_loss", 0.0) + 1e-3 * aux.get("z_loss", 0.0)
+    if not ms.tp:
+        # the dp policy's plain gradients are summed over every rank; ranks
+        # along a data axis the batch does not split over hold the same rows
+        r = math.prod(ms.mi.size(a) for a in ms.mi.data_axes if a not in ms.bax)
+        if r > 1:
+            loss = shd.scale_grad(loss, 1.0 / r)
+    return loss, aux
+
+
+def _cache_layout(cfg, ms: _MeshStep, b: int, cache_len: int):
+    """The cache's sanitized spec, this rank's (B, S) block of it and its
+    placements."""
+    shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.hd)
+    spec = shd.cache_specs(cfg, ms.mesh, {"k": torch.empty(shape, device="meta")})["k"]
+    spec = shd.sanitize_specs(ms.mesh, spec, torch.empty(shape, device="meta"))
+    block = shd.local_block(ms.mesh, spec, shape)
+    return block[1], block[2], shd.to_placements(ms.mesh, spec)
+
+
+def _last_position(ms: _MeshStep, x: torch.Tensor) -> torch.Tensor:
+    """The residual's last position (B_loc, 1, D) on every model rank: under
+    SP it lives on the last model rank, which adds it into zeros."""
+    last = x[:, -1:]
+    if not ms.sp:
+        return last
+    keep = torch.full((), float(ms.rank_m == ms.m - 1), dtype=x.dtype, device=x.device)
+    return ms.psum(last * keep, (ms.model,))
+
+
+def _serving_step(cfg, mesh_info, b: int, s: int) -> _MeshStep:
+    ms = _MeshStep(cfg, mesh_info, b, s)
+    if not ms.tp:
+        raise NotImplementedError("the mesh's serving steps shard the weights over the model axis: serve "
+                                  "with the 1d or 2d policy (the dry-run serves a dp arch under 1d)")
+    return ms
+
+
+def _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len):
+    """``prefill`` on a mesh: the cache comes back as ``DTensor``s placed by
+    the sanitized ``cache_specs`` (sequence over the model axis), the last
+    logits as one full (B, V) tensor on every rank."""
+    from torch.distributed.tensor import DTensor
+
+    b, s = tokens.shape
+    cache_len = cache_len or s
+    ms = _serving_step(cfg, mesh_info, b, s)
+    x = _mesh_embed(cfg, ms, params, tokens, extras)
+    positions = _positions(x.shape[0], s, x.device)
+    rows, seq, placements = _cache_layout(cfg, ms, b, cache_len)
+    local = (cfg.n_layers, rows.stop - rows.start, seq.stop - seq.start, cfg.n_kv_heads, cfg.hd)
+    kcache = torch.zeros(local, dtype=x.dtype, device=x.device)
+    vcache = torch.zeros(local, dtype=x.dtype, device=x.device)
+    lo, hi = seq.start, min(seq.stop, s)  # this rank's filled cache rows
+    for i, lp in enumerate(params.layers):
+        x, _, (k, v, split) = _mesh_block(cfg, ms, x, lp, positions)
+        if split:
+            k, v = ms.gather_heads(k), ms.gather_heads(v)
+        if hi > lo:
+            kcache[i, :, : hi - lo] = k[:, lo:hi]
+            vcache[i, :, : hi - lo] = v[:, lo:hi]
+    x = rmsnorm(_last_position(ms, x), ms.fetch(params.final_norm), cfg.norm_eps)
+    logits = ms.gather_rows((x @ ms.fetch(params.lm_head))[:, 0])
+    full = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.hd)
+    cache = {name: DTensor.from_local(t, ms.mesh, placements, run_check=False, shape=full,
+                                      stride=torch.empty(full, device="meta").stride())
+             for name, t in (("k", kcache), ("v", vcache))}
+    cache["pos"] = torch.full((), s - 1, dtype=torch.int32, device=x.device)
+    return cache, logits
+
+
+def _decode_step_mesh(cfg, params, cache, token, mesh_info):
+    """``decode_step`` on a mesh: the residual is replicated over the model
+    axis (one token), q and the new K/V are gathered to every head, the
+    new K/V written on the shard that owns ``pos``, and attention runs as
+    flash-decode over the sequence-split cache. The cache's local blocks
+    are updated in place; the logits come back as one full (B, V)."""
+    from torch.distributed.tensor import Shard
+
+    b = token.shape[0]
+    ms = _serving_step(cfg, mesh_info, b, 1)
+    pos = cache["pos"] + 1
+    if pos.dim():
+        raise ValueError("the mesh's decode step takes one position for every row (a scalar pos)")
+    kl, vl = cache["k"].to_local(), cache["v"].to_local()
+    seq_split = any(isinstance(p, Shard) and p.dim == 2 for p in cache["k"].placements)
+    offset = ms.rank_m * kl.shape[2] if (ms.tp and seq_split) else 0
+    x = torch.nn.functional.embedding(token[ms.block_rows].long(), ms.fetch(params.embed))[:, None, :]
+    bl = x.shape[0]
+    positions = pos.expand(bl)[:, None]
+    H, KV, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.hd, ms.m
+    for i, lp in enumerate(params.layers):
+        h = rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps)
+        q, k, v, split = _mesh_qkv(cfg, ms, lp, ms.gather_seq(h))
+        q = ms.gather_heads(q) if ms.tp else q
+        if split and ms.tp:
+            k, v = ms.gather_heads(k), ms.gather_heads(v)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        kc, vc = kl[i], vl[i]
+        attn.cache_update(kc, vc, k, v, pos - offset)
+        if ms.tp and seq_split:
+            o = attn.decode_attention_sharded(q, kc, vc, pos, offset, ms.mesh.get_group(ms.model),
+                                              window=cfg.sliding_window)
+        else:
+            o = attn.decode_attention(q, kc, vc, pos, window=cfg.sliding_window)
+        hq = H // m
+        o = o[:, :, ms.rank_m * hq : (ms.rank_m + 1) * hq].reshape(bl, 1, hq * hd)
+        x = x + ms.reduce_seq(o @ ms.fetch(lp["wo"], 0))
+        h2 = rmsnorm(x, ms.fetch(lp["mlp_norm"]), cfg.norm_eps)
+        y, _ = _mesh_mlp(cfg, ms, lp, h2)
+        x = x + y
+    x = rmsnorm(x, ms.fetch(params.final_norm), cfg.norm_eps)
+    logits = ms.gather_rows((x @ ms.fetch(params.lm_head))[:, 0])
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos}

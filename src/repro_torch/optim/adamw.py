@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,23 +81,39 @@ def _tree_order(names) -> list:
     return sorted(names, key=key)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor], replicas: Optional[Mapping[str, int]] = None,
+                groups: Sequence = ()) -> torch.Tensor:
     """sqrt of the float32 sum of squares, summed leaf by leaf in the
     reference's tree order. The reference reduces each stacked (L, ...) leaf
     at once where the port adds its L layers' sums, so the last bits may
-    differ."""
-    sq = sum(torch.sum(torch.square(tree[k].float())) for k in _tree_order(tree))
+    differ.
+
+    On a mesh ``tree`` holds this rank's shards: ``replicas[k]`` is the
+    number of ranks that hold the same shard of leaf k (its sum is divided
+    by it, exactly: the counts are powers of two here) and the sum is
+    all-reduced over each process group of ``groups`` (the mesh's axes)."""
+    if replicas is None:
+        sq = sum(torch.sum(torch.square(tree[k].float())) for k in _tree_order(tree))
+        return torch.sqrt(sq)
+    import torch.distributed as dist
+
+    sq = sum(torch.sum(torch.square(tree[k].float())) / replicas[k] for k in _tree_order(tree))
+    for g in groups:
+        dist.all_reduce(sq, group=g)
     return torch.sqrt(sq)
 
 
 @torch.no_grad()
 def apply_updates(
-    cfg: OptConfig, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor], state: Dict
+    cfg: OptConfig, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor], state: Dict,
+    replicas: Optional[Mapping[str, int]] = None, groups: Sequence = (),
 ) -> Tuple[Dict, Dict]:
     """One AdamW step, in place on ``params`` and the state's moments.
-    Returns ``(state, metrics)`` with ``grad_norm`` and ``lr``."""
+    Returns ``(state, metrics)`` with ``grad_norm`` and ``lr``. On a mesh
+    (ZeRO-1) every tensor is this rank's shard, and ``replicas`` and
+    ``groups`` make the clip norm the whole tree's (:func:`global_norm`)."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, replicas, groups)
     scale = torch.clamp(_f32(cfg.clip_norm, gnorm) / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = schedule(cfg, step)
     b1, b2 = cfg.betas

@@ -1,7 +1,6 @@
 """Roofline terms of one step of the port, counted from the ops it runs.
 
-The port of the JAX package's ``repro.roofline.analysis`` for one device.
-The reference reads XLA's compiled artifact: ``cost_analysis``, and the
+The port of the JAX package's ``repro.roofline.analysis``. The reference reads XLA's compiled artifact: ``cost_analysis``, and the
 dots of the optimized HLO text (``parse_dot_stats``), scaled by each
 ``while`` body's trip count. The port has no HLO. :func:`count_step` runs
 the step under a dispatch mode instead (on ``meta`` tensors for the
@@ -11,15 +10,19 @@ product it dispatches (``mm``, ``bmm``, ``addmm``, ``baddbmm`` and the
 elements · contracted size) and the bytes (the products' operands and
 result). A loop runs as many times as the step runs it, so no trip-count
 correction is needed; a rematerialized block counts its forward twice, as
-the card runs it.
+the card runs it. On a mesh (the dry-run's fake world of 256 or 512
+ranks) the mode sees one rank's local ops and collectives: the FLOPs and
+bytes are one device's, and each collective's bytes are counted with the
+reference's ring factors (:func:`_ring_bytes`).
 
 Terms per step, in seconds:
 
     compute = counted FLOPs / PEAK_FLOPS
     memory  = counted bytes / HBM_BW
-    collective = 0 (one device; the mesh's terms wait for ROADMAP.md, queue 1 item 6)
+    collective = counted collective bytes / NET_BW
 
-Both constants are the published peaks of one H100 SXM, so the seconds
+The constants are the published peaks of one H100 SXM and of its network
+link off a DGX H100 node, so the seconds
 are bounds a step cannot beat, not times. ``model_flops`` is the analytic
 6 · N_active · D (train) or 2 · N_active · D (inference) beside them;
 their ratio (``useful_flops_ratio``) flags remat's recompute and the
@@ -36,6 +39,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 PEAK_FLOPS = 989e12
 #: H100 SXM published HBM3 bandwidth, bytes/s
 HBM_BW = 3.35e12
+#: bytes/s one H100 sends off its node: a DGX H100 gives each of its 8 GPUs
+#: one 400 Gb/s ConnectX-7 NIC (NVIDIA DGX H100 user guide, "Hardware
+#: overview"), 50 GB/s. Every axis of the (16, 16) and (2, 16, 16) meshes
+#: spans more than one 8-GPU node, so a collective over one moves at this
+#: rate, not at NVLink's 900 GB/s
+NET_BW = 50e9
 
 
 def model_flops(cfg, shape) -> float:
@@ -48,6 +57,11 @@ def model_flops(cfg, shape) -> float:
 
 
 def _nbytes(t: torch.Tensor) -> int:
+    """A tensor's bytes on this device (a ``DTensor``'s local block)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.to_local()
     return t.numel() * t.element_size()
 
 
@@ -63,20 +77,90 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+#: the collectives a step dispatches: op name -> (kind, index of the
+#: tensor this rank sends). ``_c10d_functional`` ops are ``DTensor``'s
+#: (and the functional collectives'); ``c10d`` ops are ``torch.distributed``'s
+#: own (the MoE's and the sort's processor groups, the flash-decode combine)
+_COLLECTIVES = {
+    "all_gather_into_tensor": ("all-gather", 0), "reduce_scatter_tensor": ("reduce-scatter", 0),
+    "all_reduce": ("all-reduce", 0), "all_to_all_single": ("all-to-all", 0),
+    "allreduce_": ("all-reduce", 0), "allgather_": ("all-gather", 1), "_allgather_base_": ("all-gather", 1),
+    "allgather_into_tensor_coalesced_": ("all-gather", 1), "reduce_scatter_": ("reduce-scatter", 1),
+    "_reduce_scatter_base_": ("reduce-scatter", 1), "reduce_scatter_tensor_coalesced_": ("reduce-scatter", 1),
+    "alltoall_base_": ("all-to-all", 1), "alltoall_": ("all-to-all", 1), "broadcast_": ("broadcast", 0),
+}
+
+
+def _group_size(func, args) -> int:
+    """The size of the process group a collective runs over: the functional
+    collectives name it (or give its size), ``c10d``'s ops carry it."""
+    import torch.distributed as dist
+
+    for a in args:
+        if isinstance(a, dist.ProcessGroup):
+            return a.size()
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return dist.ProcessGroup.unbox(a).size()
+            except RuntimeError:  # another boxed class (the reduce op)
+                continue
+    name = args[-1]
+    if isinstance(name, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        return _resolve_process_group(name).size()
+    raise TypeError(f"no process group in {func}'s arguments")
+
+
+def _ring_bytes(kind: str, sent: int, g: int) -> float:
+    """Bytes a rank moves for one collective over g ranks, by the ring
+    algorithms (the reference's factors): all-gather (g-1)·shard,
+    reduce-scatter operand·(g-1)/g, all-reduce 2·operand·(g-1)/g,
+    all-to-all and broadcast the operand."""
+    if kind == "all-gather":
+        return (g - 1) * sent
+    if kind == "reduce-scatter":
+        return sent * (g - 1) / g
+    if kind == "all-reduce":
+        return 2.0 * sent * (g - 1) / g
+    return float(sent)
+
+
 class _DotCounter(TorchDispatchMode):
     """Sums the FLOPs and bytes of every matrix product dispatched under it,
-    and counts every aten op."""
+    counts every aten op, and sums each collective's bytes by kind. A
+    ``DTensor`` op is passed on to ``DTensor`` first (``NotImplemented``,
+    as ``CommDebugMode`` does), so the mode sees the local ops and the
+    collectives it turns into: the counts are one rank's."""
 
     def __init__(self):
         super().__init__()
         self.flops = self.bytes = 0.0
         self.ops = 0
+        self.collectives: Dict[str, float] = {}
+        self.collective_ops = 0
+
+    def _collective(self, func, args) -> None:
+        kind, at = _COLLECTIVES[func.overloadpacket.__name__]
+        sent = args[at]
+        sent = sum(_nbytes(t) for t in _tensors(sent))
+        g = _group_size(func, args)
+        if g > 1:
+            self.collectives[kind] = self.collectives.get(kind, 0.0) + _ring_bytes(kind, sent, g)
+        self.collective_ops += 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         self.ops += 1
         packet = func.overloadpacket
+        if func.namespace in ("c10d", "_c10d_functional", "c10d_functional") and packet.__name__ in _COLLECTIVES:
+            self._collective(func, args)
+            return out
         if packet in (torch.ops.aten.mm, torch.ops.aten.bmm):
             a, b = args[0], args[1]
         elif packet in (torch.ops.aten.addmm, torch.ops.aten.baddbmm):
@@ -106,7 +190,8 @@ def count_step(fn, *args) -> Dict[str, float]:
     with counter:
         fn(*args)
     return {"dot_flops": counter.flops, "dot_bytes": counter.bytes, "aten_ops": counter.ops,
-            "args_bytes": float(args_bytes)}
+            "args_bytes": float(args_bytes), "collectives": dict(counter.collectives),
+            "collective_ops": counter.collective_ops}
 
 
 def analyze(counts: Dict[str, float], *, cfg, shape, devices: int = 1) -> Dict:
@@ -120,10 +205,14 @@ def analyze(counts: Dict[str, float], *, cfg, shape, devices: int = 1) -> Dict:
     info["model_flops_total"] = mf
     per_dev_model = mf / devices
 
+    coll = counts.get("collectives", {})
+    coll_total = sum(coll.values())
+    info["collectives"] = {k: round(v / 2**20, 2) for k, v in coll.items()}
+    info["collective_mb_per_dev"] = round(coll_total / 2**20, 2)
     t_compute = flops / PEAK_FLOPS
     t_compute_model = per_dev_model / PEAK_FLOPS
     t_memory = bytes_ / HBM_BW
-    t_coll = 0.0
+    t_coll = coll_total / NET_BW
     info["t_compute_s"] = t_compute
     info["t_compute_model_s"] = t_compute_model
     info["t_memory_s"] = t_memory

@@ -52,6 +52,13 @@ def _unflatten(tree: Any, leaves) -> Any:
     return next(leaves)
 
 
+def _placed(tree: Any) -> bool:
+    """Whether the tree holds ``DTensor`` leaves (placed on a mesh)."""
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for _, t in _flatten(tree))
+
+
 def _to_saveable(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
@@ -60,6 +67,15 @@ def _to_saveable(t: torch.Tensor) -> np.ndarray:
 
 
 def _from_saved(raw: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """The saved leaf as ``like``'s: its dtype and device, and for a
+    ``DTensor`` its mesh and placements (each rank keeps its block)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(like, DTensor):
+        from ..models import sharding as shd
+
+        spec = shd.spec_of(like.device_mesh, like.placements, like.dim())
+        return shd.place(_from_saved(raw, like.to_local()), like.device_mesh, spec)
     if like.dtype == torch.bfloat16 and raw.dtype == np.uint16:
         t = torch.from_numpy(raw.view(np.int16).copy()).view(torch.bfloat16)
     else:
@@ -68,21 +84,41 @@ def _from_saved(raw: np.ndarray, like: torch.Tensor) -> torch.Tensor:
 
 
 def save(path: str, step: int, tree: Any, *, keep: int = 3, extra: Optional[Dict] = None) -> str:
-    os.makedirs(path, exist_ok=True)
+    """Save ``tree``; returns the payload's path. A tree placed on a mesh
+    (``DTensor`` leaves) is saved by every rank of the world: each leaf is
+    gathered whole, rank 0 writes it, so the files are the one-process
+    checkpoint's, byte for byte, and no rank returns before rank 0 has
+    written the files and pruned the old ones (a barrier)."""
+    import torch.distributed as dist
+
+    from ..models.sharding import full
+
     leaves = _flatten(tree)
-    arrays = {f"leaf_{i}": _to_saveable(t) for i, (_, t) in enumerate(leaves)}
+    placed = _placed(tree)
+    # a DTensor leaf gathered whole: a collective, every rank of its mesh
+    arrays = {f"leaf_{i}": _to_saveable(full(t)) for i, (_, t) in enumerate(leaves)}
+    final = os.path.join(path, f"ckpt_{step:08d}.npz")
+    if not placed or dist.get_rank() == 0:
+        _write(path, final, step, tree, arrays, len(leaves), keep, extra)
+    if placed:
+        dist.barrier()
+    return final
+
+
+def _write(path: str, final: str, step: int, tree: Any, arrays: Dict, nleaves: int, keep: int,
+           extra: Optional[Dict]) -> None:
+    os.makedirs(path, exist_ok=True)
     tmp_fd, blob = tempfile.mkstemp(dir=path, suffix=".tmp.npz")
     os.close(tmp_fd)
     np.savez(blob, **arrays)  # name ends in .npz → written in place
     with open(blob, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()
-    final = os.path.join(path, f"ckpt_{step:08d}.npz")
     os.replace(blob, final)
     manifest = {
         "step": step,
         "sha256": digest,
         "treedef": _treedef(tree),
-        "nleaves": len(leaves),
+        "nleaves": nleaves,
         "extra": extra or {},
     }
     mtmp = final + ".manifest.tmp"
@@ -90,7 +126,6 @@ def save(path: str, step: int, tree: Any, *, keep: int = 3, extra: Optional[Dict
         json.dump(manifest, f, indent=2)
     os.replace(mtmp, final.replace(".npz", ".json"))
     _gc(path, keep)
-    return final
 
 
 def _gc(path: str, keep: int) -> None:
@@ -119,7 +154,8 @@ def latest_step(path: str) -> Optional[int]:
 
 def restore(path: str, step: int, like: Any, *, verify: bool = True) -> Any:
     """Restore into the structure of ``like``: each leaf a new tensor on the
-    device and in the dtype of ``like``'s leaf."""
+    device and in the dtype of ``like``'s leaf, and a ``DTensor`` leaf's
+    placements on its mesh (the reference restores into shardings)."""
     blob = os.path.join(path, f"ckpt_{step:08d}.npz")
     man = blob.replace(".npz", ".json")
     if verify and os.path.exists(man):

@@ -2,7 +2,8 @@
 dry-run (``launch.dryrun``).
 
 The mesh-free steps are the model's own prefill and decode, bit for bit,
-and a mesh is refused. ``lower_cell`` traces a cell's train, prefill or
+and a mesh that is not a ``DeviceMesh`` is refused. The mesh cells run as
+rank 0 of the production mesh in a world of torch's ``fake`` backend. ``lower_cell`` traces a cell's train, prefill or
 decode step on ``meta`` tensors: every reduced architecture at every
 shape kind (the shapes cut to 256 positions and 4 rows, their names kept,
 so ``runnable`` skips as for the full shapes), and the full whisper-tiny
@@ -55,10 +56,11 @@ def test_mesh_free_steps_are_the_model_steps(arch):
 
 
 def test_steps_refuse_a_mesh():
+    """A mesh that is not a ``DeviceMesh`` is refused."""
     model = Model(get_arch("tinyllama-1.1b").reduced(), device="meta")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1 item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_prefill_step(model, object(), cache_len=8)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue 1 item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_decode_step(model, object(), batch=2, cache_len=8)
 
 
@@ -130,3 +132,78 @@ def test_a_cell_that_fails_is_reported_not_dropped(tmp_path, monkeypatch, capsys
     info = json.loads(out.read_text())["tinyllama-1.1b|train_4k|1"]
     assert info["status"] == "error" and info["error"] == "RuntimeError: cannot trace"
     assert "0 ok, 0 skipped, 1 errors" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ the mesh cells
+def test_mesh_cells_on_the_fake_world(capsys):
+    """``--mesh`` and ``--multi-pod``: rank 0 of the production mesh in a
+    world of torch's ``fake`` backend. tinyllama's train_4k under its dp
+    policy runs one of the 256 rows on each of the 16 x 16 ranks: its
+    per-device matrix-product FLOPs are the one-device cell's / 256; on
+    the multi-pod mesh the batch splits over (pod, data) only (the
+    reference's sanitized spec; the model axis's ranks hold the same
+    rows): / 32. Both move gradients (ZeRO-1's reduce-scatters and
+    gathers). granite's decode_32k on the multi-pod mesh is ``ok`` with
+    collective bytes (the flash-decode combine, the expert sums)."""
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    one = dryrun.lower_cell("tinyllama-1.1b", "train_4k")
+    for multi_pod, n, split in ((False, 256, 256), (True, 512, 32)):
+        with fake_world(n):
+            mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+            info = dryrun.lower_cell("tinyllama-1.1b", "train_4k", mesh)
+            assert info["status"] == "ok" and info["devices"] == n
+            assert math.isclose(info["dot_flops_per_dev"], one["dot_flops_per_dev"] / split, rel_tol=1e-12)
+            assert info["t_collective_s"] > 0 and info["collectives"]["reduce-scatter"] > 0
+            if multi_pod:
+                dec = dryrun.lower_cell("granite-moe-1b-a400m", "decode_32k", mesh)
+                assert dec["status"] == "ok" and dec["t_collective_s"] > 0, dec
+                assert dec["dominant"] in ("memory", "collective")
+
+
+def test_collective_bytes_of_a_toy_sharded_matmul():
+    """The counter's collective bytes against a hand count on a 16-rank
+    fake world: a (64, 32) float32 weight sharded on rows and gathered
+    (an all-gather: 15 x its 4 x 32 x 4 B shard), the (16, 32) product's
+    all-reduce (2 x 2048 B x 15/16) and reduce-scatter over the rows
+    (2048 B x 15/16)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.roofline.analysis import count_step
+
+    with fake_world(16):
+        mesh = make_mesh((16,), ("model",), "cpu")
+        w = DTensor.from_local(torch.empty(4, 32, device="meta"), mesh, [Shard(0)], run_check=False)
+
+        def step(w, x):
+            full = w.redistribute(mesh, [Replicate()]).to_local()
+            y = x @ full
+            partial = DTensor.from_local(y, mesh, [Partial()], run_check=False)
+            partial.redistribute(mesh, [Replicate()])
+            DTensor.from_local(y, mesh, [Partial()], run_check=False).redistribute(mesh, [Shard(0)])
+
+        counts = count_step(step, w, torch.empty(16, 64, device="meta"))
+    assert counts["dot_flops"] == 2 * 16 * 32 * 64
+    assert counts["collectives"] == {"all-gather": 15 * 4 * 32 * 4, "all-reduce": 2 * 2048 * 15 / 16,
+                                     "reduce-scatter": 2048 * 15 / 16}
+    assert counts["collective_ops"] == 3
+
+
+def test_summary_counts_the_cells_not_ported(tmp_path, capsys):
+    """The cells of ROADMAP.md queue 1 item 7 (jamba everywhere, the ssm
+    and audio families' serving) are ``not_ported``, counted apart; a
+    dense arch's long_500k keeps the reference's skip."""
+    out = tmp_path / "cells.json"
+    assert dryrun.main(["--arch", "jamba-1.5-large-398b", "--shape", "train_4k", "--mesh", "--out", str(out)]) == 0
+    cells = json.loads(out.read_text())
+    assert cells["jamba-1.5-large-398b|train_4k|16x16"]["status"] == "not_ported"
+    assert "item 7" in cells["jamba-1.5-large-398b|train_4k|16x16"]["reason"]
+    assert "dry-run summary: 0 ok, 0 skipped, 0 errors, 1 not ported" in capsys.readouterr().out
+    for arch, shape in (("whisper-tiny", "decode_32k"), ("xlstm-350m", "prefill_32k")):
+        assert dryrun.main(["--arch", arch, "--shape", shape, "--multi-pod"]) == 0
+        assert "0 ok, 0 skipped, 0 errors, 1 not ported" in capsys.readouterr().out
+    assert dryrun.main(["--arch", "deepseek-7b", "--shape", "long_500k", "--mesh", "--out", str(out)]) == 0
+    info = json.loads(out.read_text())["deepseek-7b|long_500k|16x16"]
+    assert info["status"] == "skipped" and info["reason"] == ref_lm().configs.get_arch("deepseek-7b").runnable(
+        ref_lm().configs.SHAPES["long_500k"])[1]

@@ -49,19 +49,21 @@ def test_every_module_imports_alone():
     proc = subprocess.run([sys.executable, "-c", _EACH_ALONE], env=env, capture_output=True, text=True,
                           timeout=240)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 88, proc.stdout  # the audio family, roofline, dry-run and mesh included
+    assert int(proc.stdout.split()[0]) >= 89, proc.stdout  # the audio family, roofline, dry-run, meshes included
     for name in ("repro_torch.configs.granite_moe_1b_a400m", "repro_torch.models.moe", "repro_torch.serve.engine",
                  "repro_torch.data.pipeline", "repro_torch.optim.adamw", "repro_torch.optim.compress",
                  "repro_torch.train.train_step", "repro_torch.train.checkpoint", "repro_torch.launch.train",
                  "repro_torch.models.ssm", "repro_torch.models.hybrid", "repro_torch.models.xlstm",
                  "repro_torch.models.encdec", "repro_torch.roofline.analysis", "repro_torch.launch.steps",
-                 "repro_torch.launch.dryrun", "repro_torch.launch.mesh"):
+                 "repro_torch.launch.dryrun", "repro_torch.launch.mesh", "repro_torch.models.sharding"):
         assert name in _module_names(), name
 
 
 def test_the_runner_modules_import_alone_and_start_no_group():
     """The multi-process runner's modules (the mesh, the processor groups,
-    the sharded sort and the MoE's mesh paths), each alone: no JAX, no JAX
+    the sharded sort and the MoE's mesh paths) and the mesh steps' (the
+    specs, the transformer, the train step, checkpoints, the serving
+    steps, the drivers and the roofline), each alone: no JAX, no JAX
     package, and no process group started by an import."""
     check = ("import sys, importlib, torch.distributed as dist\n"
              "importlib.import_module(sys.argv[1])\n"
@@ -69,7 +71,10 @@ def test_the_runner_modules_import_alone_and_start_no_group():
              "sys.exit('imports ' + ', '.join(bad[:5]) if bad else ('started a group' if dist.is_initialized() else 0))")
     env = dict(os.environ, PYTHONPATH=str(SRC))
     for name in ("repro_torch.launch.mesh", "repro_torch.core.primitives", "repro_torch.core.api",
-                 "repro_torch.core.routing", "repro_torch.models.moe"):
+                 "repro_torch.core.routing", "repro_torch.models.moe", "repro_torch.models.sharding",
+                 "repro_torch.models.transformer", "repro_torch.train.train_step", "repro_torch.train.checkpoint",
+                 "repro_torch.launch.steps", "repro_torch.launch.dryrun", "repro_torch.launch.train",
+                 "repro_torch.roofline.analysis"):
         proc = subprocess.run([sys.executable, "-c", check, name], env=env, capture_output=True, text=True,
                               timeout=120)
         assert proc.returncode == 0, f"{name}: {proc.stdout}{proc.stderr[-2000:]}"

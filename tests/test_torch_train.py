@@ -317,7 +317,7 @@ def test_train_step_refuses_a_mesh_and_foreign_params():
     model = Model(get_arch("tinyllama-1.1b").reduced(), device="cpu")
     oc = OptConfig()
     params, opt = init_all(model, oc)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(model, oc, mesh=object())
     other = {k: p.detach().clone() for k, p in params.items()}
     tokens = torch.zeros((2, 8), dtype=torch.int32)
