@@ -267,18 +267,40 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      over a 1024 cache; the same full-width steps in one
                      process beside them, one step under ``HostSplit``.
                      It launches no K1-K4.
+24. ``mesh_families_path`` — the last mesh paths, 4 gloo ranks sharing
+                     ``cuda:0``: one process first runs the float32
+                     parity steps and the bf16 serving walls and frees the
+                     card; then on (data 2, model 2) under 1d xlstm-350m
+                     and whisper-tiny uncut and jamba at its published
+                     widths cut to one super-block, 4 experts and a d_ff
+                     of 4096 (~6.2 B parameters), prefill 4 x 256 and 3
+                     decode steps within 1e-4 of one process's logits;
+                     one jamba train step under 2d on a jamba-shaped
+                     model (d_model 1024, ~0.3 B) against rank 0's
+                     one-process step (loss, every updated leaf, records
+                     dropped); then on (data 1, model 4) under 1d in bf16
+                     at published widths: jamba (one super-block, 4
+                     experts, ~16.2 B) prefill 4 x 256 and decode at 4
+                     lanes over 512, xlstm-350m prefill 8 x 512 and decode
+                     at 8 lanes, whisper-tiny prefill 16 x 448 on its 1500
+                     frames and decode at 16 lanes: walls a rank and one
+                     process's, peak a rank, rank 0's ``HostSplit`` of a
+                     decode step. Each rank draws its parameters leaf by
+                     leaf and keeps only its blocks. It launches no
+                     K1-K4.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20, 21, 22 and 23, each counted from zero
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23 and 24, each counted from zero
 just before the phase's checked runs and read just after, phase 22's
-summed over its ranks and also given as ``sharded_launches``; the int64
+summed over its ranks and also given as ``sharded_launches``, phase 24's
+as ``mesh_families_launches``; the int64
 routes of K2 and K3 and K3's float route are listed and counted on their
 own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23) runs the build and those phases only,
+phases 11, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23, 24) runs the build and those phases only,
 and prints no result line.
 """
 from __future__ import annotations
@@ -4242,6 +4264,375 @@ def phase_mesh_path(torch, core, build, device="cuda", spec=MESH_SPEC):
     return launches
 
 
+# ------------------------------------------------------ mesh_families_path
+#: the last mesh paths: xlstm and whisper served tensor-parallel, jamba's
+#: super-block served and trained on a mesh; 4 gloo ranks sharing the card.
+#: (a) float32 parity with one process on ``parity_mesh``: each (name,
+#: arch, overrides, held to ``MESH_TOL``) served at ``parity_prefill``
+#: then ``decode_steps`` steps, and one jamba train step under 2d at
+#: ``train_batch``. One process's own float32 logits of xlstm-350m move
+#: by 8.0e-5 of the largest when the prompt's batch is halved (the
+#: phase's ``one_process_spread`` on an NVIDIA H100 80GB HBM3 at 700 W):
+#: its mLSTM blocks amplify a rounding difference, and 24 of them compound
+#: it. Its whole depth is served and reported beside that spread; the
+#: check at ``MESH_TOL`` holds its first 8 blocks (7 mLSTM, 1 sLSTM),
+#: whose spread is 1.2e-5; (b) bf16
+#: serving at published widths on ``serve_mesh``: (arch, overrides,
+#: prefill (B, S), decode (lanes, cache)). jamba is cut to one super-block
+#: (8 layers) and 4 experts, and for its float32 parity to a d_ff of 4096
+#: (xlstm's state does not grow with the context: its decode "cache" of
+#: 1024 only lets the timed prefill of 512 seed the decode steps)
+#: (~6.2 B parameters, ~23 GiB); its train step runs on a jamba-shaped
+#: model of d_model 1024 (~0.3 B parameters): 6.2 B parameters at 16 B
+#: each (weights, gradients, AdamW's moments) would be ~99 GB
+MESH_FAMILIES_SPEC = dict(
+    parity_mesh=(2, 2), serve_mesh=(1, 4), parity_prefill=(4, 256), decode_steps=3,
+    parity=((f"{REC_ARCH}, 8 blocks", REC_ARCH, dict(n_layers=8), True), (REC_ARCH, REC_ARCH, {}, False),
+            (AUDIO_ARCH, AUDIO_ARCH, {}, True), (HYB_ARCH, HYB_ARCH, dict(HYB_CUT, moe_experts=4, d_ff=4096), True)),
+    train=(HYB_ARCH, dict(HYB_CUT, d_model=1024, n_heads=8, n_kv_heads=2, d_ff=2048, moe_experts=4)),
+    train_batch=(4, 256),
+    serve=((HYB_ARCH, dict(HYB_CUT, moe_experts=4), (4, 256), (4, 512)), (REC_ARCH, {}, (8, 512), (8, 1024)),
+           (AUDIO_ARCH, {}, (16, 448), (16, 448))),
+    reduced=False)
+#: the CPU rehearsal's cut (tests/test_torch_mesh_families.py): the reduced
+#: configs, jamba at one super-block
+MESH_FAMILIES_REHEARSAL = dict(
+    MESH_FAMILIES_SPEC, parity_prefill=(4, 16), train_batch=(4, 32), reduced=True,
+    parity=((REC_ARCH, REC_ARCH, {}, True), (AUDIO_ARCH, AUDIO_ARCH, {}, True), (HYB_ARCH, HYB_ARCH, HYB_CUT, True)),
+    train=(HYB_ARCH, HYB_CUT),
+    serve=((HYB_ARCH, HYB_CUT, (4, 16), (4, 32)), (REC_ARCH, {}, (4, 16), (4, 32)),
+           (AUDIO_ARCH, {}, (4, 16), (4, 16))))
+
+
+def family_cfg(spec, arch, over, **kw):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch).reduced() if spec["reduced"] else get_arch(arch)
+    return dataclasses.replace(cfg, **{**over, **kw})
+
+
+def leaf_value(torch, name, meta, dev, gen):
+    """One parameter drawn on ``dev`` as the families' init draws it: the
+    norms, gates and Mamba constants as their init sets them, every other
+    leaf a normal draw over the root of its fan-in."""
+    leaf, shape = name.split(".")[-1], tuple(meta.shape)
+    const = {"D": 1.0, "conv_b": 0.0, "b_i": 0.0, "b_zifo": 0.0, "b_dt": -4.6, "b_f": 3.0}
+    if "norm" in name or leaf in const:
+        return torch.full(shape, const.get(leaf, 1.0), dtype=meta.dtype, device=dev)
+    if leaf == "A_log":
+        return torch.log(torch.arange(1, shape[1] + 1, dtype=meta.dtype, device=dev)).expand(shape).clone()
+    fan_in = shape[-1] if leaf == "embed" else shape[-2]
+    return (torch.randn(shape, generator=gen, device=dev) / math.sqrt(fan_in)).to(meta.dtype)
+
+
+def family_model(torch, cfg, dev, seed, mesh=None):
+    """``cfg``'s model on ``dev``, its parameters drawn one after another
+    from one generator seeded with ``seed`` and, on ``mesh``, each placed
+    by its sanitized spec as soon as it is drawn: a rank holds its blocks
+    and one whole leaf at most (jamba's float32 cut is ~23 GiB whole, and
+    four ranks share the card)."""
+    from torch import nn
+
+    from repro_torch.models import Model
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.lm import model_axis_size
+
+    model = Model(cfg, device="meta")
+    model.device = dev
+    shapes = dict(model.named_parameters())
+    specs = None
+    if mesh is not None:
+        specs = shd.sanitize_specs(mesh, shd.param_specs(cfg, shapes, model_axis_size(mesh)), shapes)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, meta in shapes.items():
+        t = leaf_value(torch, name, meta, dev, gen)
+        if specs is not None:
+            t = shd.place(t, mesh, specs[name])
+        *path, leaf = name.split(".")
+        owner = model.get_submodule(".".join(path)) if path else model
+        p = nn.Parameter(t, requires_grad=False)
+        if isinstance(owner, nn.ParameterList):
+            owner[int(leaf)] = p
+        elif isinstance(owner, nn.ParameterDict):
+            owner[leaf] = p
+        else:
+            setattr(owner, leaf, p)
+    model.mesh = mesh
+    return model
+
+
+def family_batch(torch, cfg, dev, rows, s, seed):
+    """A prompt batch of ``rows`` x ``s`` tokens (whisper's with its
+    frames), drawn from ``seed`` on the host, the same in every process."""
+    from repro_torch.models.layers import dtype_of
+
+    gen = torch.Generator().manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (rows, s), generator=gen, dtype=torch.int32).to(dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((rows, cfg.enc_positions, cfg.d_model), generator=gen).to(dev, dtype_of(cfg))
+    return batch
+
+
+def family_serve(torch, model, mesh, batch, steps, cache_len):
+    """Prefill, then ``steps`` decode steps of tokens drawn from a seed:
+    the logits of each."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    rows = batch["tokens"].shape[0]
+    gen = torch.Generator().manual_seed(28)
+    toks = torch.randint(0, model.cfg.vocab, (steps, rows), generator=gen, dtype=torch.int32).to(model.device)
+    with torch.no_grad():
+        cache, logits = make_prefill_step(model, mesh, cache_len)(batch)
+        out = [logits.float()]
+        dec = make_decode_step(model, mesh, rows, cache_len)
+        for t in toks:
+            logits, cache = dec(cache, t)
+            out.append(logits.float())
+    return out
+
+
+def family_walls(torch, model, mesh, batch, dbatch, cache_len, steps, sync, barrier, host=None):
+    """Serving walls of one family: prefill (median of 2, every rank
+    started together) and decode steps (median after one warm step) from a
+    prefill of ``dbatch`` at ``cache_len``; on a mesh one more decode step
+    on every rank, rank 0's under ``host`` (a ``HostSplit``)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    pre = make_prefill_step(model, mesh, cache_len)
+    walls = []
+    with torch.no_grad():
+        for _ in range(2):
+            barrier()
+            sync()
+            t0 = time.perf_counter()
+            cache, logits = pre(batch)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        if dbatch is not batch:
+            cache, logits = pre(dbatch)
+        dec = make_decode_step(model, mesh, dbatch["tokens"].shape[0], cache_len)
+        tok = logits.argmax(-1).to(torch.int32)
+        dec_walls = []
+        for _ in range(steps + 1):
+            barrier()
+            sync()
+            t0 = time.perf_counter()
+            logits, cache = dec(cache, tok)
+            tok = logits.argmax(-1).to(torch.int32)
+            sync()
+            dec_walls.append(time.perf_counter() - t0)
+        split = None
+        if mesh is not None:
+            with host or contextlib.nullcontext():
+                logits, cache = dec(cache, tok)
+                sync()
+            split = host.row() if host is not None else None
+    return dict(prefill_wall_s=statistics.median(walls), decode_step_s=statistics.median(dec_walls[1:]),
+                logits_finite=bool(torch.isfinite(logits).all()), host_split=split)
+
+
+def decode_batch(torch, cfg, dev, batch, decode):
+    """The decode walls' prefill: the timed prefill itself where its
+    prompt leaves room in the decode cache, else ``lanes`` x cache / 2."""
+    lanes, cache_len = decode
+    if batch["tokens"].shape[1] < cache_len and batch["tokens"].shape[0] == lanes:
+        return batch
+    return family_batch(torch, cfg, dev, lanes, cache_len // 2, 8)
+
+
+def mesh_families_rank(rank, n, spec):
+    """One rank of ``mesh_families_path`` (see the phase)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build as build
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_all, make_train_step
+
+    mesh = make_mesh(spec["parity_mesh"], ("data", "model"), spec["device"])
+    dev = mesh_device(mesh)
+    on_card = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    build.reset_counts()
+    out = dict(rank=rank, device=str(dev), backend=dist.get_backend(), parity={})
+    b, s = spec["parity_prefill"]
+    for name, arch, over, _ in spec["parity"]:
+        cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding="1d")
+        model = family_model(torch, cfg, dev, 0, mesh)
+        logits = family_serve(torch, model, mesh, family_batch(torch, cfg, dev, b, s, 25), spec["decode_steps"],
+                              2 * s)
+        out["parity"][name] = [t.cpu() for t in logits] if rank == 0 else None
+        del model
+        free()
+    # one jamba train step under 2d, against one process on rank 0
+    arch, over = spec["train"]
+    cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding="2d")
+    oc = OptConfig(**MESH_OPT)
+    tb, ts = spec["train_batch"]
+    toks = family_batch(torch, cfg, dev, tb, ts, 26)["tokens"]
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    model = family_model(torch, cfg, dev, 1, mesh)
+    params, opt = init_all(model, oc, mesh)
+    params, opt, met = make_train_step(model, oc, mesh)(params, opt, batch)
+    got = {k: mesh_full(p) for k, p in params.items()}
+    train = dict(arch=arch, loss=float(met["loss"]), overflow=bool(met["aux_overflow"]))
+    del model, params, opt
+    if rank == 0:
+        one = family_model(torch, cfg, dev, 1)
+        p1, o1 = init_all(one, oc)
+        p1, o1, m1 = make_train_step(one, oc)(p1, o1, batch)
+        train.update(one_loss=float(m1["loss"]), one_overflow=bool(m1["aux_overflow"]),
+                     loss_rel_err=abs(train["loss"] - float(m1["loss"])) / abs(float(m1["loss"])))
+        errs = {k: float((got[k].float() - p.detach().float()).abs().max() / p.detach().float().abs().max())
+                for k, p in p1.items()}
+        train["leaf_worst"] = max(errs.items(), key=lambda kv: kv[1])
+        del one, p1, o1
+    out["train"] = train
+    del got
+    free()
+
+    # (b) bf16 at published widths on the serving mesh
+    smesh = make_mesh(spec["serve_mesh"], ("data", "model"), spec["device"])
+    out["serve"] = {}
+    for arch, over, prefill, decode in spec["serve"]:
+        cfg = family_cfg(spec, arch, over, param_sharding="1d")
+        model = family_model(torch, cfg, dev, 2, smesh)
+        batch = family_batch(torch, cfg, dev, *prefill, 27)
+        row = family_walls(torch, model, smesh, batch, decode_batch(torch, cfg, dev, batch, decode), decode[1],
+                           spec["decode_steps"], sync, dist.barrier, HostSplit() if rank == 0 else None)
+        row["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None
+        out["serve"][arch] = row
+        del model
+        free()
+    out["launches"] = build.counts()
+    return out
+
+
+def mesh_families_one_process(torch, spec, dev):
+    """One process's side of the phase on the device: the float32 parity
+    runs' logits and their own spread (the prefill of the first half of
+    the rows alone against the same rows of the whole batch), and the
+    bf16 serving walls and peak."""
+    import gc
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    out = dict(parity={}, spread={}, params={}, serve={})
+    b, s = spec["parity_prefill"]
+    for name, arch, over, _ in spec["parity"]:
+        cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding="1d")
+        model = family_model(torch, cfg, dev, 0)
+        batch = family_batch(torch, cfg, dev, b, s, 25)
+        logits = [t.cpu() for t in family_serve(torch, model, None, batch, spec["decode_steps"], 2 * s)]
+        half = family_serve(torch, model, None, {k: v[: b // 2] for k, v in batch.items()}, 0, 2 * s)[0].cpu()
+        out["parity"][name], out["params"][name] = logits, cfg.param_count()
+        out["spread"][name] = float((half - logits[0][: b // 2]).abs().max() / logits[0][: b // 2].abs().max())
+        del model
+        free()
+    for arch, over, prefill, decode in spec["serve"]:
+        cfg = family_cfg(spec, arch, over, param_sharding="1d")
+        model = family_model(torch, cfg, dev, 2)
+        batch = family_batch(torch, cfg, dev, *prefill, 27)
+        row = family_walls(torch, model, None, batch, decode_batch(torch, cfg, dev, batch, decode), decode[1],
+                           spec["decode_steps"], sync, lambda: None)
+        row.update(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+                   params=cfg.param_count())
+        del row["host_split"]
+        out["serve"][arch] = row
+        del model
+        free()
+    return out
+
+
+def phase_mesh_families_path(torch, core, build, device="cuda", spec=MESH_FAMILIES_SPEC):
+    """The last mesh paths (see ``MESH_FAMILIES_SPEC``): 4 gloo ranks
+    sharing the card, as ``mesh_path``'s. One process first computes the
+    float32 parity runs' logits and the bf16 serving walls, and frees the
+    card; then the ranks run the same on the meshes: the float32 logits of
+    xlstm, whisper and jamba within 1e-4 of one process's, one jamba train
+    step under 2d (loss, every updated leaf, records dropped) against
+    rank 0's one-process step, then each family's bf16 prefill and decode
+    walls, peak a rank and rank 0's ``HostSplit`` of one decode step. It
+    launches none of K1-K4; a rank that fails fails the phase."""
+    import gc
+
+    from repro_torch.launch.mesh import spawn
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    build.reset_counts()
+    one = mesh_families_one_process(torch, spec, dev)
+    launches = {k: v for k, v in build.counts().items() if k in KERNEL_NAMES}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    n = math.prod(spec["parity_mesh"])
+    if math.prod(spec["serve_mesh"]) != n:
+        fail("mesh_families_path", f"the two meshes {spec['parity_mesh']}, {spec['serve_mesh']} differ in size")
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_families_rank, n, backend="gloo", device=device, args=(dict(spec, device=device),))
+    spawn_s = time.perf_counter() - t0
+    launches = {name: launches.get(name, 0) + sum(r["launches"].get(name, 0) for r in ranks)
+                for name in KERNEL_NAMES}
+    for r in ranks:
+        if r["device"].split(":")[0] != device or r["backend"] != "gloo":
+            fail("mesh_families_path", f"rank {r['rank']} ran on {r['device']} over {r['backend']}")
+        bad = [a for a, row in r["serve"].items() if not row["logits_finite"]]
+        if bad:
+            fail("mesh_families_path", f"rank {r['rank']}: non-finite bf16 logits of {bad}")
+    parity, problems = {}, []
+    for name, arch, over, held in spec["parity"]:
+        got, want = ranks[0]["parity"][name], one["parity"][name]
+        errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        parity[name] = dict(cut=over, logits_rel_err=errs, held_to_tol=held, params=one["params"][name],
+                            one_process_spread=one["spread"][name])
+        if len(got) != len(want) or (held and max(errs) > MESH_TOL):
+            problems.append(f"{name} float32 on the mesh against one process: {errs}")
+    train = ranks[0]["train"]
+    if train["overflow"] != train["one_overflow"]:
+        problems.append(f"jamba train: records dropped {train['overflow']}, one process {train['one_overflow']}")
+    if train["loss_rel_err"] > MESH_TOL or train["leaf_worst"][1] > MESH_TOL:
+        problems.append(f"jamba train step on the mesh against one process: {train}")
+    if any(launches.values()):
+        problems.append(f"launched {launches}")
+    serve = {}
+    for arch, over, prefill, decode in spec["serve"]:
+        serve[arch] = dict(cut=over, prefill=prefill, decode=decode, params=one["serve"][arch]["params"],
+                           per_rank={k: [r["serve"][arch][k] for r in ranks]
+                                     for k in ("prefill_wall_s", "decode_step_s", "peak_mem_gib")},
+                           host_split_rank0=ranks[0]["serve"][arch]["host_split"],
+                           one_process=one["serve"][arch])
+    emit({"phase": "mesh_families_path", "ok": not problems, "parity_mesh": spec["parity_mesh"],
+          "serve_mesh": spec["serve_mesh"], "backend": "gloo", "ranks": n,
+          "transport": "gloo through the host, every rank on one card: says nothing of NVLink",
+          "parity": parity, "tol": MESH_TOL,
+          "train": dict(train, cut=spec["train"][1], batch=spec["train_batch"], policy="2d", opt=MESH_OPT),
+          "serve": serve, "launches": launches, "spawn_and_run_s": spawn_s,
+          "nvidia_smi": nvidia_smi() if device == "cuda" else None, "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        fail("mesh_families_path", "; ".join(problems))
+    return launches
+
+
 def phase_ladder(torch, core):
     cfg = core.SortConfig(p=128, n_per_proc=8192, **SLICE)
     x = torch.from_numpy(adversarial(cfg.p, cfg.n_per_proc)).cuda()
@@ -4320,7 +4711,7 @@ def main() -> int:
                  "delta_path": phase_delta_path, "lm_path": phase_lm_path,
                  "train_path": phase_train_path, "recurrent_path": phase_recurrent_path,
                  "audio_path": phase_audio_path, "sharded_path": phase_sharded_path,
-                 "mesh_path": phase_mesh_path}
+                 "mesh_path": phase_mesh_path, "mesh_families_path": phase_mesh_families_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -4387,6 +4778,12 @@ def main() -> int:
         launches[name] += mesh_launches.get(name, 0)
     emit({"phase": "mesh_launches", "ok": True, "launches": mesh_launches,
           "none_as_expected": not any(mesh_launches.values())})
+    # nor do the recurrent and audio families on a mesh
+    families_launches = phase_mesh_families_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += families_launches.get(name, 0)
+    emit({"phase": "mesh_families_launches", "ok": True, "launches": families_launches,
+          "none_as_expected": not any(families_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 
@@ -4412,7 +4809,8 @@ def main() -> int:
         kernels.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                             launches=launches[name], max_abs_err=e["max_abs_err"], ms=e["ms"],
                             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"], bound_by=e["bound_by"],
-                            library_ms=e["library_ms"], sharded_launches=sharded_launches[name]))
+                            library_ms=e["library_ms"], sharded_launches=sharded_launches[name],
+                            mesh_families_launches=families_launches[name]))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

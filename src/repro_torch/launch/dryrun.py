@@ -18,10 +18,8 @@ data 16, model 16) mesh, in a world of torch's ``fake`` backend
 (``launch.mesh.fake_world``): the step places its parameters, state,
 batch and cache as on the real mesh, and the counts are that rank's local
 products and its collectives (cells keyed ``|16x16`` and ``|2x16x16``).
-The cells of the families whose mesh paths are still to be ported
-(jamba's, and the ssm and audio families' serving cells: ROADMAP.md,
-queue 1 item 7) are ``not_ported``. A trace that fails (a step that reads
-a value back, or a data-dependent shape) is a cell with ``status: error``.
+A trace that fails (a step that reads a value back, or a data-dependent
+shape) is a cell with ``status: error``.
 It sets no environment variable and touches no device.
 
 Per cell this records the trace's wall (``trace_s``, in place of the
@@ -71,20 +69,6 @@ def opt_config_for(cfg) -> OptConfig:
     )
 
 
-#: why a cell's mesh step is not run yet
-NOT_PORTED = ("the mesh path of this family and kind is still to be ported: jamba's super-block hooks and the "
-              "tensor-parallel serving of the ssm, xlstm and audio families (ROADMAP.md, queue 1 item 7)")
-
-
-def mesh_ported(cfg, shape) -> bool:
-    """Whether the port has a mesh step for ``cfg`` at ``shape``'s kind:
-    the transformer families everywhere, the others' training under the
-    ``dp`` policy."""
-    if cfg.family in ("dense", "moe", "vlm"):
-        return True
-    return shape.kind == "train" and cfg.param_sharding == "dp"
-
-
 def lower_cell(arch, shape, mesh=None) -> Dict:
     """Trace one cell's step on ``meta`` tensors and analyze it. ``arch`` is
     a registered name or an ``ArchConfig``, ``shape`` a name of ``SHAPES``
@@ -101,8 +85,6 @@ def lower_cell(arch, shape, mesh=None) -> Dict:
         # the reference serves with TP weights. A sharding policy: on one
         # device it changes nothing
         cfg = dataclasses.replace(cfg, param_sharding="1d")
-    if mesh is not None and not mesh_ported(cfg, shape):
-        return {"status": "not_ported", "reason": NOT_PORTED}
 
     model = Model(cfg, device="meta")
     t0 = time.perf_counter()
@@ -184,10 +166,9 @@ def _run(cells, mesh, tag: str, out) -> int:
             with open(out, "w") as f:
                 json.dump(results, f, indent=2)
 
-    counts = {s: sum(1 for r in results.values() if r["status"] == s) for s in ("ok", "skipped", "not_ported")}
+    counts = {s: sum(1 for r in results.values() if r["status"] == s) for s in ("ok", "skipped")}
     n_err = len(results) - sum(counts.values())
-    print(f"\n=== dry-run summary: {counts['ok']} ok, {counts['skipped']} skipped, {n_err} errors, "
-          f"{counts['not_ported']} not ported ===")
+    print(f"\n=== dry-run summary: {counts['ok']} ok, {counts['skipped']} skipped, {n_err} errors ===")
     return 1 if n_err else 0
 
 

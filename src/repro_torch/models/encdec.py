@@ -18,6 +18,18 @@ encoder layer i's ``attn_norm``, ``mlp_norm``, ``wq``, ``wk``, ``wv``,
 A decode cache is ``{"k", "v": (L, B, S_max, KV, hd), "xk", "xv": (L, B,
 T, KV, hd), "pos"}``; ``k`` and ``v`` are updated in place, ``pos`` is a
 scalar or one position per lane, as in ``models.transformer``.
+
+On a mesh (serving under ``1d`` or ``2d``; the reference trains this
+family under ``dp`` only) the steps are tensor-parallel as the
+transformer's (``models.transformer._MeshStep``; whisper's 6 heads do not
+divide a model axis of 4 or 16, so its q, k and v are gathered to every
+head there): the encoder runs over the frames (sequence-split between
+blocks where they divide the model axis), its output is gathered to every
+frame for the cross K/V, and the cache comes back placed by the sanitized
+``cache_specs``: K and V with the sequence over the model axis, ``xk`` and
+``xv`` with the frames over it where they divide it (replicated where
+not). Decode runs flash-decode over the sequence-split cache and over
+frame-split cross K/V at the last frame.
 """
 from __future__ import annotations
 
@@ -29,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import attention as attn
+from . import transformer as tfm
 from .layers import (_dense, dtype_of, init_attn, init_mlp, next_token_loss, rmsnorm, sinusoidal_positions,
                      swiglu)
 
@@ -162,6 +175,8 @@ def prefill(
 ) -> Tuple[Dict, torch.Tensor]:
     """Encode the frames, run the prompt through the decoder, build the
     caches. Returns (cache, last logits)."""
+    if tfm._on_mesh(mesh_info):
+        return _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len)
     enc_out = encode(cfg, params, _frames(extras))
     b, s = tokens.shape
     cache_len = cache_len or s
@@ -194,6 +209,8 @@ def decode_step(
     """One autoregressive step; ``cache['pos']`` is the last filled position
     (a scalar, or one per lane). The self-attention cache is updated in
     place; the cross K/V are read at every position of the frames."""
+    if tfm._on_mesh(mesh_info):
+        return _decode_step_mesh(cfg, params, cache, token, mesh_info)
     b = token.shape[0]
     pos = cache["pos"] + 1  # position of the new token
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -219,6 +236,92 @@ def decode_step(
         x = _mlp(cfg, x + ox.reshape(b, 1, H * hd) @ lp["xwo"], lp)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = (x @ params.lm_head)[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"], "xk": cache["xk"], "xv": cache["xv"], "pos": pos}
+
+
+def _mesh_mlp(cfg, ms, x, lp):
+    y, _ = tfm._mesh_mlp(cfg, ms, lp, rmsnorm(x, ms.fetch(lp["mlp_norm"]), cfg.norm_eps), moe=False)
+    return x + y
+
+
+def _encode_mesh(cfg, params, frames, mesh_info) -> torch.Tensor:
+    """:func:`encode` on a mesh: this rank's rows, every frame on every
+    model rank at the end (the cross K/V's input)."""
+    b, t, _ = frames.shape
+    ms = tfm._serving_step(cfg, mesh_info, b, t)
+    dt = dtype_of(cfg)
+    x = frames[ms.block_rows].to(dt) + sinusoidal_positions(t, cfg.d_model, frames.device).to(dt)
+    x = ms.shard_residual(x)
+    for lp in params.enc:
+        o, _ = tfm._mesh_attention(cfg, ms, lp, rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps), None,
+                                   causal=False)
+        x = _mesh_mlp(cfg, ms, x + o, lp)
+    return ms.gather_seq(rmsnorm(x, ms.fetch(params.enc_final_norm), cfg.norm_eps))
+
+
+def _mesh_shapes(cfg, b: int, cache_len: int, t: int) -> Dict[str, torch.Tensor]:
+    shapes = cache_shapes(cfg, b, cache_len)
+    cross = torch.empty((cfg.n_layers, b, t, cfg.n_kv_heads, cfg.hd), dtype=dtype_of(cfg), device="meta")
+    return {**shapes, "xk": cross, "xv": cross}
+
+
+def _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len):
+    """``prefill`` on a mesh: the caches come back as ``DTensor``s placed
+    by the sanitized ``cache_specs``, the last logits as one full (B, V)
+    tensor on every rank."""
+    enc = _encode_mesh(cfg, params, _frames(extras), mesh_info)
+    b, s = tokens.shape
+    cache_len = cache_len or s
+    ms = tfm._serving_step(cfg, mesh_info, b, s)
+    dt = dtype_of(cfg)
+    x = F.embedding(tokens[ms.block_rows].long(), ms.fetch(params.embed))
+    x = ms.shard_residual(x + sinusoidal_positions(s, cfg.d_model, x.device).to(dt))
+    shapes = _mesh_shapes(cfg, b, cache_len, enc.shape[1])
+    specs, cache = tfm._mesh_cache(cfg, ms, shapes, x.device)
+    lo, hi = tfm._seq_block(ms, specs["k"], shapes["k"].shape)
+    hi = min(hi, s)  # this rank's filled cache rows
+    flo, fhi = tfm._seq_block(ms, specs["xk"], shapes["xk"].shape)  # and its frames
+    for i, lp in enumerate(params.dec):
+        h = rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps)
+        o, kv = tfm._mesh_attention(cfg, ms, lp, h, None)
+        x = x + o
+        hx = rmsnorm(x, ms.fetch(lp["cross_norm"]), cfg.norm_eps)
+        o2, xkv = tfm._mesh_attention(cfg, ms, lp, hx, None, causal=False, kf=enc, prefix="x")
+        x = _mesh_mlp(cfg, ms, x + o2, lp)
+        (k, v), (ek, ev) = tfm._every_head(ms, kv), tfm._every_head(ms, xkv)
+        if hi > lo:
+            cache["k"][i, :, : hi - lo] = k[:, lo:hi]
+            cache["v"][i, :, : hi - lo] = v[:, lo:hi]
+        cache["xk"][i] = ek[:, flo:fhi]
+        cache["xv"][i] = ev[:, flo:fhi]
+    cache["pos"] = torch.full((), s - 1, dtype=torch.int32, device=x.device)
+    return tfm._placed_cache(ms, specs, cache, shapes), tfm._last_logits(cfg, ms, params, x)
+
+
+def _decode_step_mesh(cfg, params, cache, token, mesh_info):
+    """``decode_step`` on a mesh: the self-attention as the transformer's
+    mesh decode, the cross-attention as flash-decode over frame-split
+    ``xk``/``xv`` at the last frame (plain decode attention where they
+    are replicated); the cache's local blocks updated in place."""
+    ms, pos = tfm._decode_mesh_step(cfg, mesh_info, cache, token)
+    kl, vl, xkl, xvl = (cache[n].to_local() for n in ("k", "v", "xk", "xv"))
+    offset, seq_split = tfm._cache_offset(ms, cache["k"])
+    xoffset, frame_split = tfm._cache_offset(ms, cache["xk"])
+    x = F.embedding(token[ms.block_rows].long(), ms.fetch(params.embed))[:, None, :]
+    b, H, hd = x.shape[0], cfg.n_heads, cfg.hd
+    # row pos of the sinusoid table over the cache, as the one-device step reads it
+    n = cache["k"].shape[2]
+    table = sinusoidal_positions(n, cfg.d_model, x.device)
+    x = x + table[pos.expand(b).long().clamp(0, n - 1)][:, None, :].to(x.dtype)
+    last_frame = torch.full((), cache["xk"].shape[2] - 1, dtype=torch.int32, device=x.device)
+    for i, lp in enumerate(params.dec):
+        h = rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps)
+        x = x + tfm._mesh_decode_attention(cfg, ms, lp, h, kl[i], vl[i], pos, None, offset, seq_split)
+        hx = ms.gather_seq(rmsnorm(x, ms.fetch(lp["cross_norm"]), cfg.norm_eps))
+        qx = ms.gather_cols(hx @ ms.fetch(lp["xwq"], 1)).reshape(b, 1, H, hd)
+        ox = tfm._decode_attend(ms, qx, xkl[i], xvl[i], last_frame, xoffset, frame_split)
+        x = _mesh_mlp(cfg, ms, x + tfm._decode_out(cfg, ms, ox, lp["xwo"]), lp)
+    logits = tfm._last_logits(cfg, ms, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "xk": cache["xk"], "xv": cache["xv"], "pos": pos}
 
 

@@ -31,8 +31,8 @@ import torch
 
 __all__ = ["Spec", "all_gather", "axes_of", "axis_names", "axis_procs", "axis_size", "batch_specs", "cache_specs",
            "chunk", "dp_axes", "exchange", "full", "gather", "local_block", "local_of", "param_spec", "param_specs",
-           "place", "psum", "reduce_scatter", "sanitize_specs", "scale_grad", "scatter_sum", "spec_of", "split",
-           "sum_grad", "to_placements", "tree_map"]
+           "place", "psum", "reduce_scatter", "regroup", "sanitize_specs", "scale_grad", "scatter_sum", "spec_of",
+           "split", "sum_grad", "to_placements", "tree_map"]
 
 
 class Spec(tuple):
@@ -274,11 +274,14 @@ def local_block(mesh, spec: Spec, shape) -> tuple:
 
 def place(t: torch.Tensor, mesh, spec: Spec):
     """``t``, the same full tensor on every rank, as a ``DTensor`` placed by
-    ``spec``: each rank keeps its block, nothing is sent."""
+    ``spec``: each rank keeps its block, nothing is sent. A block smaller
+    than ``t`` is copied out: a view (a block of leading rows is one)
+    would keep the whole of ``t`` alive."""
     from torch.distributed.tensor import DTensor
 
     local = t[local_block(mesh, spec, t.shape)]
-    return DTensor.from_local(local.contiguous(), mesh, to_placements(mesh, spec), run_check=False,
+    local = local.clone(memory_format=torch.contiguous_format) if local.numel() < t.numel() else local.contiguous()
+    return DTensor.from_local(local, mesh, to_placements(mesh, spec), run_check=False,
                               shape=t.shape, stride=t.contiguous().stride())
 
 
@@ -461,6 +464,75 @@ def exchange(t: torch.Tensor, procs) -> torch.Tensor:
     """The all-to-all of ``t``'s (1, p, ...) chunks, its backward the same
     exchange (:class:`_Exchange`)."""
     return _Exchange.apply(t, procs)
+
+
+def _regroup(t: torch.Tensor, procs, gates: int, dim: int, inverse: bool) -> torch.Tensor:
+    """The exchange of :func:`regroup` (``inverse``: its transpose).
+
+    Unit ``g·p + j`` is gate g's channel block j, ``u`` = width / p wide:
+    processor r stores units [r·gates, (r+1)·gates) (its contiguous block
+    of the concatenated columns) and needs units ``g·p + r``, one of each
+    gate. Each unit goes to one processor, so one ``all_to_all_single``
+    with uneven splits moves every unit once; a unit that stays is copied."""
+    import torch.distributed as dist
+
+    from ..core.primitives import _from_wire, _to_wire
+
+    m, r = procs.p, procs.index
+    x = t.movedim(dim, 0)
+    if x.shape[0] % gates:
+        raise ValueError(f"{x.shape[0]} columns do not hold {gates} equal gate blocks")
+    x = x.reshape((gates, x.shape[0] // gates) + tuple(x.shape[1:]))
+
+    def stored(k):  # (processor, slot) of unit k in the stored layout
+        return divmod(k, gates)
+
+    def wanted(k):  # (processor, slot) of unit k in the channel layout
+        return k % m, k // m
+
+    src, dst = (wanted, stored) if inverse else (stored, wanted)
+    order = procs._order  # the group rank of each processor: the wire's order
+    units = range(gates * m)
+    send = sorted((k for k in units if src(k)[0] == r), key=lambda k: (order[dst(k)[0]], k))
+    recv = sorted((k for k in units if dst(k)[0] == r), key=lambda k: (order[src(k)[0]], k))
+    out_splits = [sum(order[src(k)[0]] == g for k in recv) for g in range(m)]
+    in_splits = [sum(order[dst(k)[0]] == g for k in send) for g in range(m)]
+    wire = _to_wire(torch.cat([x[src(k)[1]: src(k)[1] + 1] for k in send]))
+    got = torch.empty_like(wire)
+    dist.all_to_all_single(got, wire, out_splits, in_splits, group=procs.group)
+    got = _from_wire(got, x.dtype, x.shape)
+    slot = {dst(k)[1]: i for i, k in enumerate(recv)}
+    out = torch.cat([got[slot[g]: slot[g] + 1] for g in range(gates)])
+    return out.reshape((-1,) + tuple(x.shape[2:])).movedim(0, dim)
+
+
+class _Regroup(torch.autograd.Function):
+    """:func:`regroup`; backward the inverse exchange."""
+
+    @staticmethod
+    def forward(ctx, t, procs, gates, dim):
+        ctx.procs, ctx.gates, ctx.dim = procs, gates, dim
+        return _regroup(t, procs, gates, dim, inverse=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _regroup(g.contiguous(), ctx.procs, ctx.gates, ctx.dim, inverse=True), None, None, None
+
+
+def regroup(t: torch.Tensor, procs, gates: int, dim: int = -1) -> torch.Tensor:
+    """A product of concatenated column blocks (``x @ in_proj``'s ``x1 | z``,
+    ``x @ w_zifo``'s ``z | i | f | o``), its weight stored ``Shard`` over
+    ``procs`` as one contiguous block a processor, moved to the channel
+    layout: this processor's channel block of every gate, gate after gate
+    (at p = 2 processor 0 stores all of ``x1`` and processor 1 all of
+    ``z``; processor r needs channels [r·di/p, (r+1)·di/p) of both). It
+    moves the product's columns, not the weight's blocks: at a decode step
+    or a prefill of fewer tokens than the model's width the product is the
+    smaller of the two, and the stored weights (and checkpoints) keep the
+    one-process layout. One uneven all-to-all; its backward the inverse."""
+    if procs.p == 1:
+        return t
+    return _Regroup.apply(t, procs, gates, dim % t.dim())
 
 
 def local_of(w, gather_axes: dict, grad_placements: list) -> torch.Tensor:

@@ -24,6 +24,16 @@ the exponential gating with its stabiliser and per-head scalar gates.
 
 Parameters are one layer's tensors (a dict or ``nn.ParameterDict``), where
 the reference's carry a leading stacked axis.
+
+On a mesh each block takes ``mesh``, the step's layout
+(``models.transformer._MeshStep``), and its parameters' local blocks
+(stored split over the model axis as ``models.sharding`` specs them):
+Mamba runs on this rank's channels (``in_proj``'s product regrouped to
+them, ``x1 @ w_xdbc`` summed over the model axis before the split into
+dt, B and C); the mLSTM gathers q, k and v to every head and runs the
+recurrence on all of them on every rank; the sLSTM runs on this rank's
+channels of its four gates. Each returns the row-parallel output's
+partial sum, which the caller sums over the model axis.
 """
 from __future__ import annotations
 
@@ -65,11 +75,14 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]
     }
 
 
-def _mamba_inner(p, x1: torch.Tensor, z: torch.Tensor, h0: torch.Tensor, cfg: ArchConfig):
+def _mamba_inner(p, x1: torch.Tensor, z: torch.Tensor, h0: torch.Tensor, cfg: ArchConfig, mesh=None):
     """Selective scan. x1 (B,S,di) post-conv, h0 (B,di,N). Returns y, h."""
-    di, N, _, dtr = mamba_dims(cfg)
+    _, N, _, dtr = mamba_dims(cfg)
     A = -torch.exp(p["A_log"])  # (di, N)
-    xdbc = (x1 @ p["w_xdbc"]).float()
+    xdbc = x1 @ p["w_xdbc"]
+    if mesh is not None:  # this rank's channels' share: summed before the softplus
+        xdbc = mesh.psum_split(xdbc)
+    xdbc = xdbc.float()
     dtr_part, B_part, C_part = torch.split(xdbc, [dtr, N, N], dim=-1)
     # F.softplus is x above 20 where the reference's is log1p(exp(x)): the
     # two differ by under 3e-9 there, and b_dt starts at -4.6
@@ -87,11 +100,16 @@ def _mamba_inner(p, x1: torch.Tensor, z: torch.Tensor, h0: torch.Tensor, cfg: Ar
     return y, h
 
 
-def mamba_block(p, x: torch.Tensor, cfg: ArchConfig, state=None):
-    """x (B,S,D) -> (y (B,S,D), state). state = (h (B,di,N), conv (B,dk-1,di))."""
+def mamba_block(p, x: torch.Tensor, cfg: ArchConfig, state=None, mesh=None):
+    """x (B,S,D) -> (y (B,S,D), state). state = (h (B,di,N), conv (B,dk-1,di)),
+    di this rank's channels on a mesh, where x is the whole sequence."""
     b, s, _ = x.shape
-    di, N, dk, _ = mamba_dims(cfg)
-    x1, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    _, N, dk, _ = mamba_dims(cfg)
+    xz = x @ p["in_proj"]
+    if mesh is not None:
+        xz = mesh.regroup(xz, 2)
+    x1, z = torch.chunk(xz, 2, dim=-1)
+    di = x1.shape[-1]
     if state is None:
         conv_st = torch.zeros((b, dk - 1, di), dtype=x.dtype, device=x.device)
         h0 = torch.zeros((b, di, N), dtype=torch.float32, device=x.device)
@@ -103,7 +121,7 @@ def mamba_block(p, x: torch.Tensor, cfg: ArchConfig, state=None):
     conv_w = p["conv_w"]
     conv = sum(xc[:, i : i + s, :] * conv_w[i] for i in range(dk)) + p["conv_b"]
     x1 = F.silu(conv.float()).to(x.dtype)
-    y, h = _mamba_inner(p, x1, z, h0, cfg)
+    y, h = _mamba_inner(p, x1, z, h0, cfg, mesh)
     out = y @ p["out_proj"]
     new_conv = xc[:, s:, :] if dk > 1 else conv_st  # the last dk-1 positions
     return out, (h, new_conv)
@@ -139,18 +157,24 @@ def _root(hd: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), math.sqrt(hd), dtype=torch.float32, device=like.device).to(like.dtype)
 
 
-def mlstm_core(p, x: torch.Tensor, cfg: ArchConfig, state=None):
+def mlstm_core(p, x: torch.Tensor, cfg: ArchConfig, state=None, mesh=None):
     """Matrix-memory LSTM with exponential gating + stabiliser.
 
-    state = (C (B,H,hd,hd), n (B,H,hd), m (B,H)).
+    state = (C (B,H,hd,hd), n (B,H,hd), m (B,H)), every head on every rank
+    of a mesh.
     """
     b, s, D = x.shape
     H = cfg.n_heads
     hd = D // H
-    q = (x @ p["wq"]).reshape(b, s, H, hd)
-    k = (x @ p["wk"]).reshape(b, s, H, hd)
+
+    def proj(name):  # every head's columns
+        t = x @ p[name]
+        return (t if mesh is None else mesh.gather_cols(t)).reshape(b, s, H, hd)
+
+    q = proj("wq")
+    k = proj("wk")
     k = k / _root(hd, k)
-    v = (x @ p["wv"]).reshape(b, s, H, hd)
+    v = proj("wv")
     xf = x.float()
     log_i = xf @ p["w_i"] + p["b_i"]  # (B,S,H)
     log_f = F.logsigmoid(xf @ p["w_f"] + p["b_f"])
@@ -175,6 +199,8 @@ def mlstm_core(p, x: torch.Tensor, cfg: ArchConfig, state=None):
     r = torch.stack(reads, dim=1)
     h = r[..., :hd] / torch.clamp(torch.abs(r[..., hd:]), min=1.0)
     h = h.reshape(b, s, D).to(x.dtype)
+    if mesh is not None:
+        h = mesh.chunk_cols(h)  # the rows of wo this rank holds
     return h @ p["wo"], (Cn[:, :, :hd], Cn[:, :, hd], m)
 
 
@@ -205,10 +231,15 @@ def init_slstm(gen: torch.Generator, cfg: ArchConfig) -> Dict[str, torch.Tensor]
     }
 
 
-def slstm_core(p, x: torch.Tensor, cfg: ArchConfig, state=None):
-    """Scalar-memory LSTM with exponential gating. state = (c, n, m) (B,D)."""
-    b, s, D = x.shape
-    zifo = x.float() @ p["w_zifo"] + p["b_zifo"]
+def slstm_core(p, x: torch.Tensor, cfg: ArchConfig, state=None, mesh=None):
+    """Scalar-memory LSTM with exponential gating. state = (c, n, m) (B,D),
+    D this rank's channels on a mesh (``b_zifo`` then this rank's channels
+    of each gate)."""
+    zifo = x.float() @ p["w_zifo"]
+    if mesh is not None:
+        zifo = mesh.regroup(zifo, 4)
+    zifo = zifo + p["b_zifo"]
+    b, s, D = x.shape[0], x.shape[1], zifo.shape[-1] // 4
     z, log_i, f_pre, o = torch.chunk(zifo, 4, dim=-1)
     log_f = F.logsigmoid(f_pre)
     if state is None:

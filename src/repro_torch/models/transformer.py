@@ -37,7 +37,7 @@ from ..configs.base import ArchConfig
 from . import attention as attn
 from . import moe as moe_mod
 from . import sharding as shd
-from .layers import _dense, dtype_of, init_attn, init_mlp, next_token_loss, rmsnorm, rope
+from .layers import _dense, dtype_of, init_attn, init_mlp, next_token_loss, rmsnorm, rope, swiglu
 
 
 def stacks(cfg: ArchConfig) -> Dict[str, int]:
@@ -81,10 +81,7 @@ def _mlp_block(cfg, lp, h, mesh_info=None, lanes: int = 1):
     """SwiGLU, or the MoE layer (``lanes``: see ``moe._grouped_gemm_moe``),
     on one device (the mesh's four-way choice is :func:`_mesh_mlp`)."""
     if not cfg.moe_experts:
-        g = h @ lp["w_gate"]
-        u = h @ lp["w_up"]
-        hh = torch.nn.functional.silu(g.float()).to(h.dtype) * u
-        return hh @ lp["w_down"], {}
+        return swiglu(h, lp), {}
     moe_params = {k: lp[k] for k in ("router", "w_gate", "w_up", "w_down")}
     return moe_mod.moe_tp(moe_params, h, cfg, lanes=lanes)
 
@@ -264,6 +261,13 @@ class _MeshStep:
     all-gather crashes under gloo on CUDA tensors). Under the ``dp``
     policy the model axis is one more data axis, and a block is the
     one-device block on local tokens.
+
+    Where the heads do not divide the model axis (whisper's 6 and xlstm's
+    4 at model 16: the sanitized specs still split the products' columns,
+    so a head straddles two ranks), :attr:`head_parallel` is false: q, k
+    and v are gathered to every head, attention or the recurrence runs on
+    every model rank, and the row-parallel output takes this rank's
+    column block of it (:meth:`own_cols`).
     """
 
     def __init__(self, cfg: ArchConfig, mesh_info, b: int, s: int):
@@ -281,9 +285,12 @@ class _MeshStep:
         self.bax = shd.axes_of(entry)  # the axes the batch splits over
         self.sp = self.tp and cfg.seq_shard_activations and s > 1 and s % self.m == 0
         self.tok = self.bax + ((self.model,) if self.sp else ())  # axes of distinct tokens
-        if self.tp and (cfg.n_heads % self.m or (cfg.d_ff and cfg.d_ff % self.m)):
-            raise NotImplementedError(f"{cfg.name}: {cfg.n_heads} heads and d_ff {cfg.d_ff} must divide "
-                                      f"the model axis ({self.m}) for tensor parallelism")
+        widths = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "the heads' width": cfg.n_heads * cfg.hd}
+        uneven = {k: w for k, w in widths.items() if self.tp and w % self.m}
+        if uneven:
+            raise NotImplementedError(f"{cfg.name}: {uneven} must divide the model axis ({self.m}) for tensor "
+                                      "parallelism")
+        self.head_parallel = not self.tp or cfg.n_heads % self.m == 0
         self.procs = {a: GroupProcs.from_mesh(self.mesh, a) for a in self.names}
         self.block_rows = shd.local_block(self.mesh, shd.Spec(entry), (b,))[0]
 
@@ -318,6 +325,35 @@ class _MeshStep:
         """(B_loc, S, h_loc, hd) head-split over the model axis -> every
         head (serving: no gradient)."""
         return shd.all_gather(t, self.procs[self.model], 2)
+
+    def gather_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """A column-parallel product's (..., n / m) block -> all n columns
+        on every model rank; each rank's use of them is partial, so the
+        gradient is reduce-scattered back."""
+        return shd.gather(t, self.procs[self.model], t.dim() - 1) if self.tp else t
+
+    def chunk_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """A (..., n) activation every model rank holds -> this rank's
+        column block, the rows of a row-parallel weight it holds."""
+        return shd.chunk(t, self.procs[self.model], t.dim() - 1) if self.tp else t
+
+    def own_cols(self, t: torch.Tensor) -> torch.Tensor:
+        """Every head's (..., n) attention output -> this rank's column
+        block (identity where the heads are split already)."""
+        return t if self.head_parallel else self.chunk_cols(t)
+
+    def regroup(self, t: torch.Tensor, gates: int) -> torch.Tensor:
+        """A product of ``gates`` concatenated column blocks, its weight
+        stored split over the model axis, -> this rank's channels of each
+        gate (``sharding.regroup``)."""
+        return shd.regroup(t, self.procs[self.model], gates) if self.tp else t
+
+    def psum_split(self, t: torch.Tensor) -> torch.Tensor:
+        """Partial sums over the model axis whose sum each rank then uses on
+        its own channels only: the sum, and the sum of the gradients on
+        the way back."""
+        mp = self.procs[self.model]
+        return shd.sum_grad(shd.psum(t, mp), mp) if self.tp else t
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """A (B_loc, ...) block -> the full (B, ...) tensor on every rank."""
@@ -374,61 +410,124 @@ def _kv_for_heads(cfg, ms: _MeshStep, t: torch.Tensor) -> torch.Tensor:
     return t[:, :, torch.tensor(heads, device=t.device)]  # one KV row per query head
 
 
-def _mesh_qkv(cfg, ms: _MeshStep, lp, hf: torch.Tensor):
-    """Column-parallel q, k, v of the full-sequence ``hf``: this rank's
-    query heads; its KV heads when they split over the model axis, else
-    every KV head (the weights replicated, their gradient a partial sum
-    over the model axis: each rank's query heads add to it). Returns
-    (q, k, v, k and v head-split)."""
+def _mesh_qkv(cfg, ms: _MeshStep, lp, hf: torch.Tensor, kf: Optional[torch.Tensor] = None, prefix: str = ""):
+    """Column-parallel q of the full-sequence ``hf``, and k, v of ``kf``
+    (the encoder's output of a cross-attention; ``hf`` itself by
+    default), by the weights ``prefix + "wq"`` etc. With the heads split
+    over the model axis: this rank's query heads; its KV heads when they
+    split too, else every KV head (the weights replicated or gathered,
+    their gradient a partial sum over the model axis: each rank's query
+    heads add to it). Where a head straddles two ranks: q, k and v
+    gathered to every head. Returns (q, k, v, k and v head-split)."""
+    kf = hf if kf is None else kf
     b, s, _ = hf.shape
+    t = kf.shape[1]
     H, KV, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.hd, ms.m
-    q = (hf @ ms.fetch(lp["wq"], 1, ms.bax)).reshape(b, s, H // m, hd)
-    if KV % m == 0:
-        k = (hf @ ms.fetch(lp["wk"], 1, ms.bax)).reshape(b, s, KV // m, hd)
-        v = (hf @ ms.fetch(lp["wv"], 1, ms.bax)).reshape(b, s, KV // m, hd)
-        return q, k, v, True
+
+    def col(x, name):  # this rank's column block of x @ w
+        return x @ ms.fetch(lp[prefix + name], 1, ms.bax)
+
+    if ms.head_parallel:
+        q = col(hf, "wq").reshape(b, s, H // m, hd)
+        if KV % m == 0:
+            return q, col(kf, "wk").reshape(b, t, KV // m, hd), col(kf, "wv").reshape(b, t, KV // m, hd), True
+    else:
+        q = ms.gather_cols(col(hf, "wq")).reshape(b, s, H, hd)
+        if (KV * hd) % m == 0:
+            k = ms.gather_cols(col(kf, "wk")).reshape(b, t, KV, hd)
+            return q, k, ms.gather_cols(col(kf, "wv")).reshape(b, t, KV, hd), False
     part = ms.bax + (ms.model,)
-    k = (hf @ ms.fetch(lp["wk"], None, part)).reshape(b, s, KV, hd)
-    v = (hf @ ms.fetch(lp["wv"], None, part)).reshape(b, s, KV, hd)
+    k = (kf @ ms.fetch(lp[prefix + "wk"], None, part)).reshape(b, t, KV, hd)
+    v = (kf @ ms.fetch(lp[prefix + "wv"], None, part)).reshape(b, t, KV, hd)
     return q, k, v, False
 
 
-def _mesh_attention(cfg, ms: _MeshStep, lp, h, positions, *, window):
+def _mesh_attention(cfg, ms: _MeshStep, lp, h, positions, *, window=0, causal=True, kf=None, prefix=""):
     """The attention block on the mesh (train and prefill): the sequence
     gathered once (the reference's ``_head_shard`` point: the products
-    give head-split q, k, v directly), attention over this rank's heads,
-    the row-parallel output reduce-scattered. Returns (out, (k, v,
+    give head-split q, k, v directly), attention over this rank's heads
+    (every head where they do not split), the row-parallel output
+    reduce-scattered. ``positions`` None: no RoPE (whisper's sinusoids);
+    ``kf``: the keys' input of a cross-attention. Returns (out, (k, v,
     head-split)) with k, v roped, for the cache."""
     hf = ms.gather_seq(h)
     b, s, _ = hf.shape
-    q, k, v, split = _mesh_qkv(cfg, ms, lp, hf)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    ka, va = (k, v) if split else (_kv_for_heads(cfg, ms, k), _kv_for_heads(cfg, ms, v))
+    q, k, v, split = _mesh_qkv(cfg, ms, lp, hf, kf, prefix)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    ka, va = (k, v) if split or not ms.head_parallel else (_kv_for_heads(cfg, ms, k), _kv_for_heads(cfg, ms, v))
     if s > 1:
-        o = attn.flash_attention(q, ka, va, causal=True, window=window)
+        o = attn.flash_attention(q, ka, va, causal=causal, window=window)
     else:
-        o = attn.reference_attention(q, ka, va, causal=True, window=window)
-    o = o.reshape(b, s, -1) @ ms.fetch(lp["wo"], 0, ms.bax)
+        o = attn.reference_attention(q, ka, va, causal=causal, window=window)
+    o = ms.own_cols(o.reshape(b, s, -1)) @ ms.fetch(lp[prefix + "wo"], 0, ms.bax)
     return ms.reduce_seq(o), (k, v, split)
 
 
-def _mesh_mlp(cfg, ms: _MeshStep, lp, h):
+def _every_head(ms: _MeshStep, kv) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_mesh_attention``'s (k, v, head-split) as every KV head (serving:
+    no gradient), for the cache."""
+    k, v, split = kv
+    return (ms.gather_heads(k), ms.gather_heads(v)) if split else (k, v)
+
+
+def _mesh_decode_qkv(cfg, ms: _MeshStep, lp, h, positions):
+    """A decode step's q, k, v (B_loc, 1, ...) of every head on every model
+    rank (roped where ``positions`` is given)."""
+    q, k, v, split = _mesh_qkv(cfg, ms, lp, ms.gather_seq(h))
+    q = ms.gather_heads(q) if ms.head_parallel else q
+    if split:
+        k, v = ms.gather_heads(k), ms.gather_heads(v)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _decode_attend(ms: _MeshStep, q, kc, vc, pos, offset, seq_split: bool, window=0):
+    """One query against this rank's cache block: flash-decode over the
+    model axis where the cache's sequence splits over it, else plain
+    decode attention (every position on every rank)."""
+    if seq_split:
+        return attn.decode_attention_sharded(q, kc, vc, pos, offset, ms.mesh.get_group(ms.model), window=window)
+    return attn.decode_attention(q, kc, vc, pos, window=window)
+
+
+def _decode_out(cfg, ms: _MeshStep, o, wo) -> torch.Tensor:
+    """Every head's (B_loc, 1, H, hd) decode output through the
+    row-parallel ``wo``: this rank's column block, summed over the model
+    axis."""
+    c = cfg.n_heads * cfg.hd // ms.m
+    o = o.reshape(o.shape[0], 1, -1)[..., ms.rank_m * c: (ms.rank_m + 1) * c]
+    return ms.reduce_seq(o @ ms.fetch(wo, 0))
+
+
+def _mesh_decode_attention(cfg, ms: _MeshStep, lp, h, kc, vc, pos, positions, offset, seq_split, *, window=0):
+    """The decode step's self-attention: the new K/V written into this
+    rank's cache block where it owns ``pos`` (in place), flash-decode
+    over the sequence-split cache."""
+    q, k, v = _mesh_decode_qkv(cfg, ms, lp, h, positions)
+    attn.cache_update(kc, vc, k, v, pos - offset)
+    return _decode_out(cfg, ms, _decode_attend(ms, q, kc, vc, pos, offset, seq_split, window), lp["wo"])
+
+
+def _mesh_mlp(cfg, ms: _MeshStep, lp, h, moe: Optional[bool] = None):
     """The reference's four-way ``_mlp_block`` on the mesh: ``moe_tp`` on
     local tokens under the ``dp`` policy; ``moe_ep`` (S > 1) or
     ``moe_ep_decode`` when the experts cover the model axis; else the
     experts' FFN width split over it (``moe_tp_sharded``, its sum
     reduce-scattered into the residual layout). Every MoE path's aux terms
-    are the whole batch's, as on one device. A dense MLP is column- then
-    row-parallel."""
+    are the whole batch's, as on one device. A dense MLP (``moe`` false:
+    a hybrid's dense slots) is column- then row-parallel."""
+    moe = bool(cfg.moe_experts) if moe is None else moe
     if not ms.tp:
-        p = {k: ms.fetch(lp[k]) for k in lp.keys() if k not in ("attn_norm", "mlp_norm")}
-        if not cfg.moe_experts:
-            return _mlp_block(cfg, p, h)
-        moe_params = {k: p[k] for k in ("router", "w_gate", "w_up", "w_down")}
+        if not moe:
+            return swiglu(h, {k: ms.fetch(lp[k]) for k in ("w_gate", "w_up", "w_down")}), {}
+        moe_params = {k: ms.fetch(lp[k]) for k in ("router", "w_gate", "w_up", "w_down")}
         y, aux = moe_mod.moe_tp(moe_params, h, cfg, aux_over=ms.aux_over(ms.tok), rule=_batch_rule(cfg, ms))
         return y, {**aux, "overflow": _any(ms, aux["overflow"])}
-    if not cfg.moe_experts:
+    if not moe:
         hf = ms.gather_seq(h)
         g = hf @ ms.fetch(lp["w_gate"], 1, ms.bax)
         u = hf @ ms.fetch(lp["w_up"], 1, ms.bax)
@@ -521,18 +620,21 @@ def _seq_offset(ms: _MeshStep, s_loc: int) -> int:
     return ms.rank_m * s_loc if ms.sp else 0
 
 
-def _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras):
-    """``forward_train`` on a mesh: the same loss as on one device. Each
-    rank sums the next-token losses of its own positions (the labels of
-    its rows are whole on every model rank), and one ``psum`` of (sum,
-    count) over the axes of distinct tokens gives every rank the mean."""
+def _mesh_train_step(cfg, mesh_info, tokens) -> _MeshStep:
     b, s = tokens.shape
     ms = _MeshStep(cfg, mesh_info, b, s)
     if ms.tp and not ms.sp:
         raise NotImplementedError(f"a tensor-parallel train step needs the sequence ({s}) split over the "
                                   f"model axis ({ms.m}) and cfg.seq_shard_activations")
+    return ms
+
+
+def _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras):
+    """``forward_train`` on a mesh: the same loss as on one device (see
+    :func:`_mesh_loss`)."""
+    ms = _mesh_train_step(cfg, mesh_info, tokens)
     x = _mesh_embed(cfg, ms, params, tokens, extras)
-    positions = _positions(x.shape[0], s, x.device)
+    positions = _positions(x.shape[0], tokens.shape[1], x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
     for lp in params.layers:
@@ -542,6 +644,23 @@ def _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras):
         else:
             x, aux = _mesh_block_train(cfg, ms, x, lp, positions)
         auxs.append(aux)
+    aux = {}
+    if auxs and auxs[0]:
+        aux = {k: (torch.stack([a[k] for a in auxs]).sum() if k != "overflow"
+                   else torch.stack([a[k] for a in auxs]).any()) for k in auxs[0]}
+    loss = _mesh_loss(cfg, ms, params, x, labels)
+    if cfg.moe_experts:
+        loss = loss + 0.01 * aux.get("lb_loss", 0.0) + 1e-3 * aux.get("z_loss", 0.0)
+    return _dp_share(ms, loss), aux
+
+
+def _mesh_loss(cfg, ms: _MeshStep, params, x, labels) -> torch.Tensor:
+    """The next-token loss of the residual ``x`` on a mesh, the same as on
+    one device: each rank sums the losses of its own positions (the
+    labels of its rows are whole on every model rank), and one ``psum``
+    of (sum, count) over the axes of distinct tokens gives every rank the
+    mean."""
+    s = labels.shape[1]
     x = rmsnorm(x, ms.fetch(params.final_norm, None, ms.tok), cfg.norm_eps)
     logits = (x @ ms.fetch(params.lm_head, None, ms.tok)).float()
     s_loc = x.shape[1]
@@ -554,30 +673,51 @@ def _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras):
         valid = valid & (pos + 1 >= cfg.vision_tokens)
     w = valid.to(nll.dtype).expand_as(nll)
     packed = ms.psum(torch.stack([torch.sum(nll * w), torch.sum(w)]), ms.tok)
-    loss = packed[0] / torch.clamp(packed[1], min=1.0)
-    aux = {}
-    if auxs and auxs[0]:
-        aux = {k: (torch.stack([a[k] for a in auxs]).sum() if k != "overflow"
-                   else torch.stack([a[k] for a in auxs]).any()) for k in auxs[0]}
-    if cfg.moe_experts:
-        loss = loss + 0.01 * aux.get("lb_loss", 0.0) + 1e-3 * aux.get("z_loss", 0.0)
-    if not ms.tp:
-        # the dp policy's plain gradients are summed over every rank; ranks
-        # along a data axis the batch does not split over hold the same rows
-        r = math.prod(ms.mi.size(a) for a in ms.mi.data_axes if a not in ms.bax)
-        if r > 1:
-            loss = shd.scale_grad(loss, 1.0 / r)
-    return loss, aux
+    return packed[0] / torch.clamp(packed[1], min=1.0)
 
 
-def _cache_layout(cfg, ms: _MeshStep, b: int, cache_len: int):
-    """The cache's sanitized spec, this rank's (B, S) block of it and its
-    placements."""
-    shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.hd)
-    spec = shd.cache_specs(cfg, ms.mesh, {"k": torch.empty(shape, device="meta")})["k"]
-    spec = shd.sanitize_specs(ms.mesh, spec, torch.empty(shape, device="meta"))
-    block = shd.local_block(ms.mesh, spec, shape)
-    return block[1], block[2], shd.to_placements(ms.mesh, spec)
+def _dp_share(ms: _MeshStep, loss: torch.Tensor) -> torch.Tensor:
+    """The whole loss, its gradient this rank's share under the ``dp``
+    policy: the plain gradients are summed over every rank, and ranks
+    along a data axis the batch does not split over hold the same rows."""
+    if ms.tp:
+        return loss
+    r = math.prod(ms.mi.size(a) for a in ms.mi.data_axes if a not in ms.bax)
+    return shd.scale_grad(loss, 1.0 / r) if r > 1 else loss
+
+
+def _mesh_cache(cfg, ms: _MeshStep, shapes, device):
+    """A cache of ``shapes`` (``cache_shapes``' full ``meta`` tensors) on
+    the mesh: its sanitized ``cache_specs`` and this rank's zero blocks on
+    ``device``."""
+    specs = shd.sanitize_specs(ms.mesh, shd.cache_specs(cfg, ms.mesh, shapes), shapes)
+
+    def zeros(spec, t):
+        block = shd.local_block(ms.mesh, spec, t.shape)
+        return torch.zeros(tuple(b.stop - b.start for b in block), dtype=t.dtype, device=device)
+
+    return specs, shd.tree_map(zeros, specs, shapes)
+
+
+def _placed_cache(ms: _MeshStep, specs, local, shapes):
+    """This rank's cache blocks as ``DTensor``s placed by ``specs``; a 0-d
+    leaf (``pos``) stays a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    def put(spec, t, full):
+        if not full.dim():
+            return t
+        return DTensor.from_local(t, ms.mesh, shd.to_placements(ms.mesh, spec), run_check=False,
+                                  shape=full.shape, stride=full.stride())
+
+    return shd.tree_map(put, specs, local, shapes)
+
+
+def _seq_block(ms: _MeshStep, spec, shape) -> Tuple[int, int]:
+    """This rank's positions [lo, hi) of a cache leaf's sequence
+    (dimension 2)."""
+    block = shd.local_block(ms.mesh, spec, shape)[2]
+    return block.start, block.stop
 
 
 def _last_position(ms: _MeshStep, x: torch.Tensor) -> torch.Tensor:
@@ -588,6 +728,13 @@ def _last_position(ms: _MeshStep, x: torch.Tensor) -> torch.Tensor:
         return last
     keep = torch.full((), float(ms.rank_m == ms.m - 1), dtype=x.dtype, device=x.device)
     return ms.psum(last * keep, (ms.model,))
+
+
+def _last_logits(cfg, ms: _MeshStep, params, x) -> torch.Tensor:
+    """The residual's last position through the final norm and the LM
+    head: one full (B, V) tensor on every rank."""
+    x = rmsnorm(_last_position(ms, x), ms.fetch(params.final_norm), cfg.norm_eps)
+    return ms.gather_rows((x @ ms.fetch(params.lm_head))[:, 0])
 
 
 def _serving_step(cfg, mesh_info, b: int, s: int) -> _MeshStep:
@@ -602,33 +749,44 @@ def _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len):
     """``prefill`` on a mesh: the cache comes back as ``DTensor``s placed by
     the sanitized ``cache_specs`` (sequence over the model axis), the last
     logits as one full (B, V) tensor on every rank."""
-    from torch.distributed.tensor import DTensor
-
     b, s = tokens.shape
     cache_len = cache_len or s
     ms = _serving_step(cfg, mesh_info, b, s)
     x = _mesh_embed(cfg, ms, params, tokens, extras)
     positions = _positions(x.shape[0], s, x.device)
-    rows, seq, placements = _cache_layout(cfg, ms, b, cache_len)
-    local = (cfg.n_layers, rows.stop - rows.start, seq.stop - seq.start, cfg.n_kv_heads, cfg.hd)
-    kcache = torch.zeros(local, dtype=x.dtype, device=x.device)
-    vcache = torch.zeros(local, dtype=x.dtype, device=x.device)
-    lo, hi = seq.start, min(seq.stop, s)  # this rank's filled cache rows
+    shapes = cache_shapes(cfg, b, cache_len)
+    specs, cache = _mesh_cache(cfg, ms, shapes, x.device)
+    lo, hi = _seq_block(ms, specs["k"], shapes["k"].shape)
+    hi = min(hi, s)  # this rank's filled cache rows
     for i, lp in enumerate(params.layers):
-        x, _, (k, v, split) = _mesh_block(cfg, ms, x, lp, positions)
-        if split:
-            k, v = ms.gather_heads(k), ms.gather_heads(v)
+        x, _, kv = _mesh_block(cfg, ms, x, lp, positions)
+        k, v = _every_head(ms, kv)
         if hi > lo:
-            kcache[i, :, : hi - lo] = k[:, lo:hi]
-            vcache[i, :, : hi - lo] = v[:, lo:hi]
-    x = rmsnorm(_last_position(ms, x), ms.fetch(params.final_norm), cfg.norm_eps)
-    logits = ms.gather_rows((x @ ms.fetch(params.lm_head))[:, 0])
-    full = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.hd)
-    cache = {name: DTensor.from_local(t, ms.mesh, placements, run_check=False, shape=full,
-                                      stride=torch.empty(full, device="meta").stride())
-             for name, t in (("k", kcache), ("v", vcache))}
+            cache["k"][i, :, : hi - lo] = k[:, lo:hi]
+            cache["v"][i, :, : hi - lo] = v[:, lo:hi]
+    logits = _last_logits(cfg, ms, params, x)
     cache["pos"] = torch.full((), s - 1, dtype=torch.int32, device=x.device)
-    return cache, logits
+    return _placed_cache(ms, specs, cache, shapes), logits
+
+
+def _cache_offset(ms: _MeshStep, kv) -> Tuple[int, bool]:
+    """(the global position of this rank's first cache row, whether the
+    cache's sequence splits over the model axis) of a ``DTensor`` K/V
+    cache (L, B, S, KV, hd)."""
+    from torch.distributed.tensor import Shard
+
+    split = ms.tp and any(isinstance(p, Shard) and p.dim == 2 for p in kv.placements)
+    return (ms.rank_m * kv.to_local().shape[2] if split else 0), split
+
+
+def _decode_mesh_step(cfg, mesh_info, cache, token) -> Tuple[_MeshStep, torch.Tensor]:
+    """A mesh decode step's layout and its position: one position for
+    every row."""
+    ms = _serving_step(cfg, mesh_info, token.shape[0], 1)
+    pos = cache["pos"] + 1
+    if pos.dim():
+        raise ValueError("the mesh's decode step takes one position for every row (a scalar pos)")
+    return ms, pos
 
 
 def _decode_step_mesh(cfg, params, cache, token, mesh_info):
@@ -637,38 +795,15 @@ def _decode_step_mesh(cfg, params, cache, token, mesh_info):
     new K/V written on the shard that owns ``pos``, and attention runs as
     flash-decode over the sequence-split cache. The cache's local blocks
     are updated in place; the logits come back as one full (B, V)."""
-    from torch.distributed.tensor import Shard
-
-    b = token.shape[0]
-    ms = _serving_step(cfg, mesh_info, b, 1)
-    pos = cache["pos"] + 1
-    if pos.dim():
-        raise ValueError("the mesh's decode step takes one position for every row (a scalar pos)")
+    ms, pos = _decode_mesh_step(cfg, mesh_info, cache, token)
     kl, vl = cache["k"].to_local(), cache["v"].to_local()
-    seq_split = any(isinstance(p, Shard) and p.dim == 2 for p in cache["k"].placements)
-    offset = ms.rank_m * kl.shape[2] if (ms.tp and seq_split) else 0
+    offset, seq_split = _cache_offset(ms, cache["k"])
     x = torch.nn.functional.embedding(token[ms.block_rows].long(), ms.fetch(params.embed))[:, None, :]
-    bl = x.shape[0]
-    positions = pos.expand(bl)[:, None]
-    H, KV, hd, m = cfg.n_heads, cfg.n_kv_heads, cfg.hd, ms.m
+    positions = pos.expand(x.shape[0])[:, None]
     for i, lp in enumerate(params.layers):
         h = rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps)
-        q, k, v, split = _mesh_qkv(cfg, ms, lp, ms.gather_seq(h))
-        q = ms.gather_heads(q) if ms.tp else q
-        if split and ms.tp:
-            k, v = ms.gather_heads(k), ms.gather_heads(v)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        kc, vc = kl[i], vl[i]
-        attn.cache_update(kc, vc, k, v, pos - offset)
-        if ms.tp and seq_split:
-            o = attn.decode_attention_sharded(q, kc, vc, pos, offset, ms.mesh.get_group(ms.model),
-                                              window=cfg.sliding_window)
-        else:
-            o = attn.decode_attention(q, kc, vc, pos, window=cfg.sliding_window)
-        hq = H // m
-        o = o[:, :, ms.rank_m * hq : (ms.rank_m + 1) * hq].reshape(bl, 1, hq * hd)
-        x = x + ms.reduce_seq(o @ ms.fetch(lp["wo"], 0))
+        x = x + _mesh_decode_attention(cfg, ms, lp, h, kl[i], vl[i], pos, positions, offset, seq_split,
+                                       window=cfg.sliding_window)
         h2 = rmsnorm(x, ms.fetch(lp["mlp_norm"]), cfg.norm_eps)
         y, _ = _mesh_mlp(cfg, ms, lp, h2)
         x = x + y

@@ -18,9 +18,9 @@ On a ``DeviceMesh`` (the reference's sharded step, every rank calling the
 step with the same global batch): the parameters are placed by the
 sanitized ``param_specs`` (``models.place_model``); each rank computes
 the loss of its block of the batch, the whole batch's loss on every rank
-(the transformer families through their mesh steps; the other families,
-under the ``dp`` policy, on local tensors, their losses averaged over
-every rank). The gradients are reduced into the optimizer state's
+(the transformer and hybrid families through their mesh steps; the ssm
+and audio families, which the reference trains under ``dp`` only, on
+local tensors, their losses averaged over every rank). The gradients are reduced into the optimizer state's
 placement (``sspecs``: the parameters' own under ``1d``/``2d``; 2-D
 sharded under ``dp``, ZeRO-1), AdamW runs on the shards, and the updated
 shards are gathered back into the parameters' own placement.
@@ -40,7 +40,8 @@ from ..models import sharding as shd
 from ..models.lm import model_axis_size
 from ..optim import OptConfig, apply_updates, init_state
 
-_TRANSFORMERS = ("dense", "moe", "vlm")
+#: the families with mesh train steps of their own
+_MESH_TRAINED = ("dense", "moe", "vlm", "hybrid")
 
 
 def _check_mesh(mesh) -> None:
@@ -55,11 +56,11 @@ def make_loss_fn(model: Model, mesh=None):
     if mesh is None:
         return model.train_loss
     mi = make_mesh_info(mesh, model.cfg)
-    if model.cfg.family in _TRANSFORMERS:
+    if model.cfg.family in _MESH_TRAINED:
         return functools.partial(model.train_loss, mesh_info=mi)
     if model.cfg.param_sharding != "dp":
-        raise NotImplementedError(f"the {model.cfg.family} family trains on a mesh under the dp policy only "
-                                  "(its tensor-parallel hooks: ROADMAP.md, queue 1 item 7)")
+        raise NotImplementedError(f"the {model.cfg.family} family (xlstm, whisper) trains on a mesh under the dp "
+                                  f"policy only, as the reference trains it, not under {model.cfg.param_sharding}")
     ms = _DataParallel(model, mi)
     return ms.loss
 

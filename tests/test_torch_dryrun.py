@@ -190,20 +190,51 @@ def test_collective_bytes_of_a_toy_sharded_matmul():
     assert counts["collective_ops"] == 3
 
 
-def test_summary_counts_the_cells_not_ported(tmp_path, capsys):
-    """The cells of ROADMAP.md queue 1 item 7 (jamba everywhere, the ssm
-    and audio families' serving) are ``not_ported``, counted apart; a
-    dense arch's long_500k keeps the reference's skip."""
+def test_summary_counts_no_cell_not_ported(tmp_path, capsys):
+    """Every cell has a mesh step: jamba's train_4k on the (16, 16) mesh is
+    ``ok``, the summary names no other status than ok, skipped and errors;
+    a dense arch's long_500k keeps the reference's skip."""
     out = tmp_path / "cells.json"
-    assert dryrun.main(["--arch", "jamba-1.5-large-398b", "--shape", "train_4k", "--mesh", "--out", str(out)]) == 0
-    cells = json.loads(out.read_text())
-    assert cells["jamba-1.5-large-398b|train_4k|16x16"]["status"] == "not_ported"
-    assert "item 7" in cells["jamba-1.5-large-398b|train_4k|16x16"]["reason"]
-    assert "dry-run summary: 0 ok, 0 skipped, 0 errors, 1 not ported" in capsys.readouterr().out
-    for arch, shape in (("whisper-tiny", "decode_32k"), ("xlstm-350m", "prefill_32k")):
-        assert dryrun.main(["--arch", arch, "--shape", shape, "--multi-pod"]) == 0
-        assert "0 ok, 0 skipped, 0 errors, 1 not ported" in capsys.readouterr().out
+    arch = dataclasses.replace(get_arch("jamba-1.5-large-398b").reduced(), n_layers=8)
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    with fake_world(256):
+        mesh = make_production_mesh(device_type="cpu")
+        info = dryrun.lower_cell(arch, REDUCED_SHAPES["train_4k"], mesh)
+    assert info["status"] == "ok", info
+    assert not hasattr(dryrun, "NOT_PORTED") and not hasattr(dryrun, "mesh_ported")
+    for arch_name, shape in (("whisper-tiny", "decode_32k"), ("xlstm-350m", "decode_32k")):
+        assert dryrun.main(["--arch", arch_name, "--shape", shape, "--multi-pod"]) == 0
+        printed = capsys.readouterr().out
+        assert "dry-run summary: 1 ok, 0 skipped, 0 errors ===" in printed and "not ported" not in printed
     assert dryrun.main(["--arch", "deepseek-7b", "--shape", "long_500k", "--mesh", "--out", str(out)]) == 0
     info = json.loads(out.read_text())["deepseek-7b|long_500k|16x16"]
     assert info["status"] == "skipped" and info["reason"] == ref_lm().configs.get_arch("deepseek-7b").runnable(
         ref_lm().configs.SHAPES["long_500k"])[1]
+
+
+#: the formerly refused families' mesh cells: (arch, overrides, shape);
+#: jamba at one super-block (its reduced config's 4 layers make none)
+FAMILY_CELLS = [("jamba-1.5-large-398b", dict(n_layers=8), "train_4k"),
+                ("jamba-1.5-large-398b", dict(n_layers=8), "prefill_32k"),
+                ("jamba-1.5-large-398b", dict(n_layers=8), "decode_32k"),
+                ("xlstm-350m", {}, "prefill_32k"), ("xlstm-350m", {}, "decode_32k"),
+                ("whisper-tiny", {}, "prefill_32k"), ("whisper-tiny", {}, "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,over,shape", FAMILY_CELLS, ids=[f"{a.split('-')[0]}-{s}" for a, _, s in FAMILY_CELLS])
+def test_family_mesh_cells_trace_with_collectives(arch, over, shape):
+    """Each family's reduced cell (shapes cut to 256 positions and 4 rows)
+    on the multi-pod mesh of the fake world: ``ok``, with collective bytes
+    (the sequence gathers, the row-parallel sums, jamba's Mamba regroup
+    and EP or FFN-split experts, the flash-decode combine)."""
+    from repro_torch.launch.mesh import fake_world, make_production_mesh
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **over)
+    with fake_world(512):
+        mesh = make_production_mesh(multi_pod=True, device_type="cpu")
+        info = dryrun.lower_cell(cfg, REDUCED_SHAPES[shape], mesh)
+    assert info["status"] == "ok", info
+    assert info["devices"] == 512 and info["t_collective_s"] > 0 and info["aten_ops"] > 0, info
+    if cfg.family == "hybrid":  # the Mamba regroup (MB, rounded: a decode step moves under 0.01)
+        assert "all-to-all" in info["collectives"], info["collectives"]

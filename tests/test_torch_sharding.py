@@ -137,3 +137,24 @@ def _flat(tree, leaf_type, path=()) -> dict:
     for k, v in items:
         out.update(_flat(v, leaf_type, path + (k,)))
     return out
+
+
+def test_place_keeps_only_this_ranks_block():
+    """A placed block owns storage of its own size: a block of leading rows
+    taken as a view of the full tensor kept the whole of it alive on every
+    rank (jamba's float32 cut at d_model 8192 ran out of memory on four
+    ranks sharing a card that way). Rank 0 of a fake world of 4."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models import sharding as shd
+
+    t = torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8)
+    with fake_world(4):
+        mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+        for spec, want in ((shd.Spec("model", None), t[:32]), (shd.Spec(None, "model"), t[:, :4]),
+                           (shd.Spec(("data", "model"), None), t[:16]), (shd.Spec(None, None), t)):
+            local = shd.place(t, mesh, spec).to_local()
+            assert torch.equal(local, want), spec
+            assert local.untyped_storage().nbytes() == local.numel() * local.element_size(), spec
