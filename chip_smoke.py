@@ -125,7 +125,8 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      K1–K4 (their batches carry the position payload and
                      ``ServiceConfig`` has no ``merge_backend``, as in the
                      JAX package); the count is printed.
-18. ``lm_path``    — granite-moe-1b-a400m at full width (24 layers, d_model
+18. ``lm_path``    — granite-moe-1b-a400m at full width cut to 12 of its
+                     24 layers (``LM_CUT``; d_model
                      1024, 32 experts top-8, vocab 49155; weights from a
                      seeded generator on the card): on its float32 copy the
                      teacher-forced check (prefill 255 tokens and decode
@@ -148,8 +149,8 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      the CPU. It launches no K1–K4 (the MoE dispatch sorts
                      with ``torch.sort``, as the reference with
                      ``jnp.argsort``); the count is printed.
-19. ``train_path`` — granite-moe-1b-a400m trained at full width in
-                     bfloat16 with remat (weights from a seeded generator):
+19. ``train_path`` — granite-moe-1b-a400m trained at full width (12 of
+                     its 24 layers, ``LM_CUT``) in bfloat16 with remat (weights from a seeded generator):
                      15 AdamW steps on the reference's memorizable batch at
                      4 x 4096 tokens (the last loss below 0.8 x the first,
                      every loss and gradient norm finite), one step
@@ -168,7 +169,8 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      count is printed.
 20. ``recurrent_path`` — the recurrent families (their scans are Python
                      loops over time, the parity path): xlstm-350m at full
-                     width (24 blocks, d_model 1024, 4 heads, vocab 50 304;
+                     width cut to 12 of its 24 blocks (``REC_CUT``; d_model
+                     1024, 4 heads, vocab 50 304;
                      seeded weights) — on its float32 copy a prefill of 64
                      tokens and 8 decode steps against the prefills of 65
                      .. 72 (1e-4 of the largest logit) and 8 ``serve()``
@@ -256,7 +258,8 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      prefill at 4 x 256 and 3 decode steps at 4 lanes: the
                      loss, every updated leaf and the logits within 1e-4
                      of their largest, the same records dropped; then
-                     granite at full depth in bf16 with remat: train at
+                     granite at full width cut to 8 of its 24 layers in
+                     bf16 with remat: train at
                      4 x 4096 (2 steps: the first's wall, tokens/s, peak
                      a rank; the second profiled on every rank, the card's
                      busy time summed over the ranks, and on rank 0 the
@@ -271,7 +274,7 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      ``cuda:0``: one process first runs the float32
                      parity steps and the bf16 serving walls and frees the
                      card; then on (data 2, model 2) under 1d xlstm-350m
-                     and whisper-tiny uncut and jamba at its published
+                     cut to 8 blocks, whisper-tiny uncut and jamba at its published
                      widths cut to one super-block, 4 experts and a d_ff
                      of 4096 (~6.2 B parameters), prefill 4 x 256 and 3
                      decode steps within 1e-4 of one process's logits;
@@ -288,20 +291,50 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      decode step. Each rank draws its parameters leaf by
                      leaf and keeps only its blocks. It launches no
                      K1-K4.
+25. ``mesh_train_families_path`` — the configurations the mesh took last,
+                     gloo ranks sharing ``cuda:0``: one process first runs
+                     the float32 steps and the bf16 walls and frees the
+                     card; then 4 ranks on (data 2, model 2), AdamW eps 1,
+                     each step held to one process's (the loss and every
+                     updated leaf within 1e-4 of its largest, a leaf's
+                     scale floored at 1e-3 of the model's largest; the
+                     logits within 1e-4; the same records dropped):
+                     xlstm-350m cut to 8 blocks (one sLSTM) trained at
+                     4 x 64 under 1d and under 2d, whisper-tiny uncut
+                     trained at 4 x 64 on 1500 frames under 1d,
+                     granite-moe-1b-a400m cut to 2 layers trained at
+                     4 x 255 under 1d (EP, 32 experts over model 2, a
+                     sequence model 2 does not divide: the residual
+                     replicated), tinyllama-1.1b cut to 2 layers served
+                     under its own dp (prefill 4 x 256, 3 decode steps,
+                     the cache re-laid to the sanitized ``cache_specs``);
+                     then bf16 at published widths and full depth on
+                     (data 1, model 4) under 1d: one xlstm-350m train step
+                     at 4 x 64 and one whisper-tiny train step at 8 x 448
+                     on 1500 frames (wall a rank, tokens/s, peak a rank,
+                     one process's step beside it, rank 0's ``HostSplit``);
+                     then a world of 3 ranks on (data 1, model 3):
+                     tinyllama-1.1b cut to 2 layers under 1d, whose d_model,
+                     d_ff and heads the model axis does not divide (its
+                     weights whole), one train step at 4 x 256, prefill
+                     4 x 256 and 3 decode steps against one process. Each
+                     rank draws its parameters leaf by leaf and keeps only
+                     its blocks. It launches no K1-K4.
 
 Then the card's ``nvidia-smi`` name and power limit, one ``{"kernels": ...}``
 summary line (``launches``: each kernel's launches over the path phases 5,
-7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23 and 24, each counted from zero
-just before the phase's checked runs and read just after, phase 22's
-summed over its ranks and also given as ``sharded_launches``, phase 24's
-as ``mesh_families_launches``; the int64
+7, 8, 9, 10, 10a, 11, 12, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23, 24 and 25, each counted
+from zero just before the phase's checked runs and read just after, phase
+22's summed over its ranks and also given as ``sharded_launches``, phase
+24's as ``mesh_families_launches``, phase 25's as
+``mesh_train_families_launches``; the int64
 routes of K2 and K3 and K3's float route are listed and counted on their
 own),
 and as the last line ``{"ok": true, "device": {...}}``. Without a CUDA
 device, or without the repository beside it, the script exits nonzero and
 prints no result. ``--phases service_path,chaos_path`` (any of the path
-phases 11, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23, 24) runs the build and those phases only,
-and prints no result line.
+phases 11, 13, 14, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25) runs the build and those phases
+only, and prints no result line.
 """
 from __future__ import annotations
 
@@ -2154,10 +2187,15 @@ def phase_chaos_path(torch, core, build):
 
 # ------------------------------------------------------------- the LM path
 LM_ARCH = "granite-moe-1b-a400m"
+#: ``lm_path``'s and ``train_path``'s cut of it: 12 of its 24 layers at
+#: its published widths. Its serving is host-bound (~5 800 aten ops a
+#: decode step at 24 layers, 115-259 s for ``lm_path`` between calls), and
+#: the whole script has to fit its 1 200 s on a card whose host runs slower
+LM_CUT = dict(n_layers=12)
 DENSE_ARCH = "tinyllama-1.1b"
 #: the teacher-forced checks on the card, relative to the logits' largest
 #: magnitude: float32 without TF32 (prefill and decode GEMMs sum in other
-#: orders over 24 layers); bfloat16 is printed, not held
+#: orders over the layers); bfloat16 is printed, not held
 TF_TOL = 1e-3
 #: a MoE layer against the plain per-token loop, float32, same scale
 MOE_TOL = 1e-5
@@ -2324,11 +2362,12 @@ def streams_equal_generate(eng, streams, prompts):
 
 
 def phase_lm_path(torch, core, build):
-    """granite-moe-1b-a400m at full width on the card: the teacher-forced
-    and MoE checks on its float32 copy, ``ServeEngine.serve`` of 32 requests
-    plus 4 arrivals in bfloat16 (timed, profiled), the float32 streams
-    against ``generate()``; tinyllama-1.1b's teacher-forced check; the
-    reduced granite and tinyllama on the card against the CPU."""
+    """granite-moe-1b-a400m at full width, cut to ``LM_CUT``'s depth, on
+    the card: the teacher-forced and MoE checks on its float32 copy,
+    ``ServeEngine.serve`` of 32 requests plus 4 arrivals in bfloat16
+    (timed, profiled), the float32 streams against ``generate()``;
+    tinyllama-1.1b's teacher-forced check; the reduced granite and
+    tinyllama on the card against the CPU."""
     import dataclasses
 
     import numpy as np
@@ -2344,7 +2383,7 @@ def phase_lm_path(torch, core, build):
     def lap(part):
         out["seconds"][part] = time.perf_counter() - t_phase - sum(out["seconds"].values())
 
-    cfg = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(get_arch(LM_ARCH), **LM_CUT)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = Model(cfg, seed=19)
@@ -2655,8 +2694,8 @@ def three_steps(torch, models, vocab, oc, init_all, make_train_step, extras=({},
 
 
 def phase_train_path(torch, core, build):
-    """granite-moe-1b-a400m trained at full width on the card (bfloat16,
-    remat): 15 steps on memorizable data, the ``launch.train`` driver's
+    """granite-moe-1b-a400m trained at full width, cut to ``LM_CUT``'s
+    depth, on the card (bfloat16, remat): 15 steps on memorizable data, the ``launch.train`` driver's
     steps timed and profiled, microbatches against the full batch,
     float32 gradients with and without remat; the reduced granite and
     tinyllama on the card against the CPU; a restart from a checkpoint."""
@@ -2688,7 +2727,7 @@ def phase_train_path(torch, core, build):
     def peak_gib():
         return torch.cuda.max_memory_allocated() / 2**30
 
-    cfg = get_arch(LM_ARCH)
+    cfg = dataclasses.replace(get_arch(LM_ARCH), **LM_CUT)
     if not cfg.remat:
         fail("train_path", f"{cfg.name} does not rematerialize")
     shape = ShapeConfig("train_path", TRAIN_SEQ, TRAIN_BATCH, "train")
@@ -2884,10 +2923,14 @@ def phase_train_path(torch, core, build):
 
 # ------------------------------------------------------ the recurrent families
 REC_ARCH, HYB_ARCH = "xlstm-350m", "jamba-1.5-large-398b"
+#: ``recurrent_path``'s cut of xlstm-350m: 12 of its 24 blocks (11 mLSTM,
+#: 1 sLSTM) at its published widths, for the script's time (its serving
+#: and training are host-bound)
+REC_CUT = dict(n_layers=12)
 #: the xlstm driver's batch x length: each mLSTM step saves about 2 MB a
 #: row for the backward pass (C and v k^T, float32), ~22 GB a row of 512
-#: over the 21 mLSTM blocks (2 x 512 peaked at 47.4 GiB), so 3 x 512 fits
-#: the card's 80 GB and 4 x 512 does not. The step is host-bound (~10^6
+#: over the 21 mLSTM blocks of the uncut model (2 x 512 peaked at 47.4
+#: GiB), so 3 x 512 fits the card's 80 GB and 4 x 512 does not. The step is host-bound (~10^6
 #: aten ops at 512 tokens whatever the batch), so a longer row would
 #: lengthen it and a wider batch does not
 REC_TRAIN_BATCH, REC_TRAIN_SEQ = 3, 512
@@ -2944,12 +2987,12 @@ def leaf_grad_errors(torch, got, want):
 
 
 def phase_recurrent_path(torch, core, build):
-    """The recurrent families on the card: xlstm-350m at full width (float32
-    carried state against the scan, float32 streams against ``generate()``,
-    bfloat16 serving and training); jamba-1.5-large-398b at its published
-    widths cut to one super-block (bfloat16 with 8 experts, float32 with
-    2); the reduced jamba (two super-blocks) and xlstm on the card against
-    the CPU."""
+    """The recurrent families on the card: xlstm-350m at full width, cut to
+    ``REC_CUT``'s depth (float32 carried state against the scan, float32
+    streams against ``generate()``, bfloat16 serving and training);
+    jamba-1.5-large-398b at its published widths cut to one super-block
+    (bfloat16 with 8 experts, float32 with 2); the reduced jamba (two
+    super-blocks) and xlstm on the card against the CPU."""
     import dataclasses
 
     import numpy as np
@@ -2978,8 +3021,8 @@ def phase_recurrent_path(torch, core, build):
     def peak_gib():
         return torch.cuda.max_memory_allocated() / 2**30
 
-    # 1. xlstm-350m at full width: its float32 copy first
-    cfg = get_arch(REC_ARCH)
+    # 1. xlstm-350m at full width, cut to REC_CUT's depth: its float32 copy first
+    cfg = dataclasses.replace(get_arch(REC_ARCH), **REC_CUT)
     fresh()
     model = Model(cfg, seed=21)
     m32 = Model(dataclasses.replace(cfg, dtype="float32"), params={k: v.float() for k, v in model.state_dict().items()})
@@ -3810,7 +3853,7 @@ def phase_sharded_path(torch, core, build, device="cuda", n_p=SHARD["n_per_proc"
 #: (B, S) and decode (lanes, cache)
 MESH_SPEC = dict(mesh=(2, 2), parity_layers=2, parity_train=(4, 256), parity_prefill=(4, 256), parity_lanes=4,
                  decode_steps=3, parity=((LM_ARCH, "1d", "1d"), (DENSE_ARCH, "dp", "1d")),
-                 train=(4, 4096), prefill=(8, 512), decode=(8, 1024), reduced=False)
+                 train=(4, 4096), prefill=(8, 512), decode=(8, 1024), full_layers=8, reduced=False)
 #: the mesh's float32 parity with the one-process step on the card,
 #: relative to each leaf's (or the logits') largest magnitude
 MESH_TOL = 1e-4
@@ -3945,6 +3988,14 @@ def mesh_cfg(torch, spec, arch, **kw):
     return dataclasses.replace(cfg, **kw)
 
 
+def mesh_full_cfg(torch, spec):
+    """The full-width granite of ``mesh_path``'s bf16 steps, cut to
+    ``spec["full_layers"]`` layers (at all 24 the phase took 105 s of the
+    script's 1200 on an H100)."""
+    cfg = mesh_cfg(torch, spec, LM_ARCH)
+    return mesh_cfg(torch, spec, LM_ARCH, n_layers=min(cfg.n_layers, spec["full_layers"]))
+
+
 def mesh_batches(torch, cfg, spec, dev):
     """The parity run's inputs, the same on every rank: train tokens and
     labels, the prompt, the decode tokens."""
@@ -4056,8 +4107,9 @@ def mesh_rank(rank, n, spec):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
 
-    # granite at full depth in bf16 with remat: train, then serve
-    cfg = mesh_cfg(torch, spec, LM_ARCH)
+    # granite at full width (cut to spec["full_layers"]) in bf16 with remat:
+    # train, then serve
+    cfg = mesh_full_cfg(torch, spec)
     b, s = spec["train"]
     model = Model(cfg, device=dev, seed=0)
     oc = OptConfig()
@@ -4145,7 +4197,7 @@ def mesh_one_process(torch, spec, dev):
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    cfg = mesh_cfg(torch, spec, LM_ARCH)
+    cfg = mesh_full_cfg(torch, spec)
     b, s = spec["train"]
     model = Model(cfg, device=dev, seed=0)
     oc = OptConfig()
@@ -4253,7 +4305,8 @@ def phase_mesh_path(torch, core, build, device="cuda", spec=MESH_SPEC):
     emit({"phase": "mesh_path", "ok": True, "mesh": spec["mesh"], "backend": "gloo", "ranks": n,
           "transport": "gloo through the host, every rank on one card: says nothing of NVLink",
           "probe": ranks[0]["probe"], "parity": ranks[0]["parity"], "tol": MESH_TOL, "parity_opt": MESH_OPT,
-          "full": dict(arch=LM_ARCH, dtype="bfloat16", remat=True, train=spec["train"], prefill=spec["prefill"],
+          "full": dict(arch=LM_ARCH, n_layers=spec["full_layers"], dtype="bfloat16", remat=True,
+                       train=spec["train"], prefill=spec["prefill"],
                        decode=spec["decode"], steps=1),
           "per_rank": {k: [r[k] for r in ranks] for k in rank_keys}, "profiled_rank0": ranks[0]["profiled"],
           "card_busy_share_of_four_ranks": card_busy,
@@ -4274,9 +4327,10 @@ def phase_mesh_path(torch, core, build, device="cuda", spec=MESH_SPEC):
 #: by 8.0e-5 of the largest when the prompt's batch is halved (the
 #: phase's ``one_process_spread`` on an NVIDIA H100 80GB HBM3 at 700 W):
 #: its mLSTM blocks amplify a rounding difference, and 24 of them compound
-#: it. Its whole depth is served and reported beside that spread; the
-#: check at ``MESH_TOL`` holds its first 8 blocks (7 mLSTM, 1 sLSTM),
-#: whose spread is 1.2e-5; (b) bf16
+#: it (the mesh's error at 24 blocks, 1.33e-4 on the card, is of that
+#: size). The check at ``MESH_TOL`` holds its first 8 blocks (7 mLSTM,
+#: 1 sLSTM), whose spread is 1.2e-5; the whole depth's float32 row is
+#: left out for time (its bf16 serving below is whole); (b) bf16
 #: serving at published widths on ``serve_mesh``: (arch, overrides,
 #: prefill (B, S), decode (lanes, cache)). jamba is cut to one super-block
 #: (8 layers) and 4 experts, and for its float32 parity to a d_ff of 4096
@@ -4287,7 +4341,7 @@ def phase_mesh_path(torch, core, build, device="cuda", spec=MESH_SPEC):
 #: each (weights, gradients, AdamW's moments) would be ~99 GB
 MESH_FAMILIES_SPEC = dict(
     parity_mesh=(2, 2), serve_mesh=(1, 4), parity_prefill=(4, 256), decode_steps=3,
-    parity=((f"{REC_ARCH}, 8 blocks", REC_ARCH, dict(n_layers=8), True), (REC_ARCH, REC_ARCH, {}, False),
+    parity=((f"{REC_ARCH}, 8 blocks", REC_ARCH, dict(n_layers=8), True),
             (AUDIO_ARCH, AUDIO_ARCH, {}, True), (HYB_ARCH, HYB_ARCH, dict(HYB_CUT, moe_experts=4, d_ff=4096), True)),
     train=(HYB_ARCH, dict(HYB_CUT, d_model=1024, n_heads=8, n_kv_heads=2, d_ff=2048, moe_experts=4)),
     train_batch=(4, 256),
@@ -4632,6 +4686,306 @@ def phase_mesh_families_path(torch, core, build, device="cuda", spec=MESH_FAMILI
         fail("mesh_families_path", "; ".join(problems))
     return launches
 
+# ------------------------------------------------- mesh_train_families_path
+#: the configurations the mesh took last: xlstm and whisper trained
+#: tensor-parallel, a train step whose sequence does not divide the model
+#: axis (the residual replicated over it), serving under the dp policy
+#: (the cache re-laid by one exchange), widths that do not divide the model
+#: axis (the weights whole). (a) float32 on ``parity_mesh`` against one
+#: process, AdamW eps 1: each train case (name, arch, overrides, policy,
+#: (B, S)) one step; each serve case (name, arch, overrides, policy,
+#: prefill (B, S)) prefill at a cache of 2 S and ``decode_steps`` steps.
+#: xlstm-350m is cut to its first 8 blocks (7 mLSTM, 1 sLSTM): at 24 its
+#: own float32 spread is 1.33e-4 of the largest logit (``mesh_families_path``);
+#: (b) bf16 at published widths and full depth on ``walls_mesh``: one train
+#: step of each (arch, overrides, (B, S)), a rank against one process;
+#: (c) float32 on ``uneven_mesh`` (3 ranks), the ``uneven`` case trained at
+#: its (B, S) and served at its prefill against one process.
+MESH_TRAIN_FAMILIES_SPEC = dict(
+    parity_mesh=(2, 2), decode_steps=3,
+    train=((f"{REC_ARCH}, 8 blocks, 1d", REC_ARCH, dict(n_layers=8), "1d", (4, 64)),
+           (f"{REC_ARCH}, 8 blocks, 2d", REC_ARCH, dict(n_layers=8), "2d", (4, 64)),
+           (f"{AUDIO_ARCH}, 1d", AUDIO_ARCH, {}, "1d", (4, 64)),
+           (f"{LM_ARCH}, 2 layers, 1d, S 255", LM_ARCH, dict(n_layers=2), "1d", (4, 255))),
+    serve=((f"{DENSE_ARCH}, 2 layers, dp", DENSE_ARCH, dict(n_layers=2), "dp", (4, 256)),),
+    walls_mesh=(1, 4), walls=((REC_ARCH, {}, (4, 64)), (AUDIO_ARCH, {}, (8, 448))),
+    uneven_mesh=(1, 3),
+    uneven=(f"{DENSE_ARCH}, 2 layers, 1d on model 3", DENSE_ARCH, dict(n_layers=2), "1d", (4, 256), (4, 256)),
+    reduced=False)
+#: the CPU rehearsal's cut (tests/test_torch_mesh_train_families_rehearsal.py):
+#: the reduced configs at short sequences (model 3 divides none of the
+#: reduced tinyllama's widths either: 128, 256 and 4 heads)
+MESH_TRAIN_FAMILIES_REHEARSAL = dict(
+    MESH_TRAIN_FAMILIES_SPEC, reduced=True,
+    train=((f"{REC_ARCH}, 1d", REC_ARCH, dict(n_layers=4, slstm_every=2), "1d", (4, 16)),
+           (f"{AUDIO_ARCH}, 1d", AUDIO_ARCH, {}, "1d", (4, 16)),
+           (f"{LM_ARCH}, 1d, S 15", LM_ARCH, {}, "1d", (4, 15))),
+    serve=((f"{DENSE_ARCH}, dp", DENSE_ARCH, {}, "dp", (4, 16)),),
+    walls=((REC_ARCH, dict(n_layers=4, slstm_every=2), (4, 16)), (AUDIO_ARCH, {}, (4, 16))),
+    uneven=(f"{DENSE_ARCH}, 1d on model 3", DENSE_ARCH, {}, "1d", (4, 16), (4, 16)))
+
+
+def train_families_batch(torch, cfg, dev, b, s, seed):
+    """A train batch of ``b`` x ``s`` tokens (whisper's with its frames),
+    the labels the tokens shifted by one."""
+    batch = family_batch(torch, cfg, dev, b, s, seed)
+    batch["labels"] = torch.roll(batch["tokens"], -1, 1)
+    return batch
+
+
+def train_families_step(torch, cfg, dev, batch, mesh=None):
+    """One float32 train step from the seeded parameters: (loss, the overflow
+    flag, the records each MoE call dropped over the whole batch, every
+    updated leaf as a full tensor on the host; on a mesh only rank 0's)."""
+    from repro_torch.models.moe import counting_drops
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_all, make_train_step
+
+    oc = OptConfig(**MESH_OPT)
+    model = family_model(torch, cfg, dev, 0, mesh)
+    params, opt = init_all(model, oc, mesh)
+    with counting_drops() as drops:
+        params, opt, met = make_train_step(model, oc, mesh)(params, opt, batch)
+    full = {k: mesh_full(p) for k, p in params.items()}
+    first = mesh is None or torch.distributed.get_rank() == 0
+    return dict(loss=float(met["loss"]), overflow=bool(met.get("aux_overflow", False)),
+                drops=[int(n) for n in drops],
+                params={k: t.float().cpu() for k, t in full.items()} if first else None)
+
+
+def train_families_serve(torch, cfg, dev, prefill, steps, mesh=None):
+    """Prefill at a cache of twice the prompt and ``steps`` decode steps:
+    the logits on the host, and on a mesh whether every cache leaf is
+    placed as the sanitized ``cache_specs`` place it."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import sharding as shd
+
+    model = family_model(torch, cfg, dev, 0, mesh)
+    batch = family_batch(torch, cfg, dev, *prefill, 25)
+    rows, cache_len = prefill[0], 2 * prefill[1]
+    toks = torch.randint(0, cfg.vocab, (steps, rows), generator=torch.Generator().manual_seed(28),
+                         dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        cache, logits = make_prefill_step(model, mesh, cache_len)(batch)
+        out = [logits.float().cpu()]
+        dec = make_decode_step(model, mesh, rows, cache_len)
+        for t in toks:
+            logits, cache = dec(cache, t)
+            out.append(logits.float().cpu())
+    placed = None
+    if mesh is not None:
+        flat = {k: v for k, v in cache.items() if k != "pos"}
+        same = []
+        shd.tree_map(lambda spec, t: same.append(list(t.placements) == shd.to_placements(mesh, spec)),
+                     shd.sanitize_specs(mesh, shd.cache_specs(cfg, mesh, flat), flat), flat)
+        placed = all(same)
+    return dict(logits=out, placed=placed)
+
+
+def train_families_wall(torch, cfg, dev, batch, sync, barrier, mesh=None, host=None):
+    """Two bf16 train steps (default AdamW): each step's wall, every rank
+    started together; the second under ``host`` (a ``HostSplit``); the
+    peak of the card's memory over both."""
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import init_all, make_train_step
+
+    oc = OptConfig()
+    model = family_model(torch, cfg, dev, 2, mesh)
+    params, opt = init_all(model, oc, mesh)
+    step = make_train_step(model, oc, mesh)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    walls, losses = [], []
+    for i in range(2):
+        barrier()
+        sync()
+        t0 = time.perf_counter()
+        with (host if i == 1 and host is not None else contextlib.nullcontext()):
+            params, opt, met = step(params, opt, batch)
+            losses.append(float(met["loss"]))
+        sync()
+        walls.append(time.perf_counter() - t0)
+    b, s = batch["tokens"].shape
+    return dict(walls_s=walls, tokens_per_s=b * s / walls[1], losses=losses,
+                peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else None,
+                host_split=host.row() if host is not None else None)
+
+
+def train_families_rank(rank, n, spec):
+    """One rank of ``mesh_train_families_path``: with ``spec["world"]`` 4,
+    the parity cases on ``parity_mesh`` and the bf16 walls on
+    ``walls_mesh``; with 3, the ``uneven`` case on ``uneven_mesh``."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import _build as build
+    from repro_torch.launch.mesh import make_mesh, mesh_device
+
+    on_card = spec["device"] == "cuda"
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    build.reset_counts()
+    out = dict(rank=rank, train={}, serve={}, walls={})
+    if spec["world"] == "uneven":
+        mesh = make_mesh(spec["uneven_mesh"], ("data", "model"), spec["device"])
+        dev = mesh_device(mesh)
+        name, arch, over, policy, tbs, prefill = spec["uneven"]
+        cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding=policy)
+        out["train"][name] = train_families_step(torch, cfg, dev, train_families_batch(torch, cfg, dev, *tbs, 26),
+                                                 mesh)
+        free()
+        out["serve"][name] = train_families_serve(torch, cfg, dev, prefill, spec["decode_steps"], mesh)
+    else:
+        mesh = make_mesh(spec["parity_mesh"], ("data", "model"), spec["device"])
+        dev = mesh_device(mesh)
+        for name, arch, over, policy, tbs in spec["train"]:
+            cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding=policy)
+            out["train"][name] = train_families_step(torch, cfg, dev,
+                                                     train_families_batch(torch, cfg, dev, *tbs, 26), mesh)
+            free()
+        for name, arch, over, policy, prefill in spec["serve"]:
+            cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding=policy)
+            out["serve"][name] = train_families_serve(torch, cfg, dev, prefill, spec["decode_steps"], mesh)
+            free()
+        wmesh = make_mesh(spec["walls_mesh"], ("data", "model"), spec["device"])
+        sync = (lambda: torch.cuda.synchronize(dev)) if on_card else (lambda: None)
+        for arch, over, tbs in spec["walls"]:
+            cfg = family_cfg(spec, arch, over, param_sharding="1d")
+            batch = train_families_batch(torch, cfg, dev, *tbs, 27)
+            out["walls"][arch] = train_families_wall(torch, cfg, dev, batch, sync, dist.barrier, wmesh,
+                                                     HostSplit() if rank == 0 else None)
+            free()
+    out["device"], out["backend"] = str(dev), dist.get_backend()
+    out["launches"] = build.counts()
+    return out if rank == 0 else {k: out[k] for k in ("rank", "device", "backend", "launches", "walls")}
+
+
+def train_families_one_process(torch, spec, dev):
+    """One process's side of the phase on the device: every float32 step
+    and the bf16 walls."""
+    import gc
+
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    out = dict(train={}, serve={}, walls={})
+    name, arch, over, policy, tbs, prefill = spec["uneven"]
+    train = list(spec["train"]) + [(name, arch, over, policy, tbs)]
+    for name, arch, over, policy, (b, s) in train:
+        cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding=policy)
+        out["train"][name] = train_families_step(torch, cfg, dev, train_families_batch(torch, cfg, dev, b, s, 26))
+        free()
+    serve = list(spec["serve"]) + [(name, arch, over, policy, prefill)]
+    for name, arch, over, policy, prefill in serve:
+        cfg = family_cfg(spec, arch, over, dtype="float32", param_sharding=policy)
+        out["serve"][name] = train_families_serve(torch, cfg, dev, prefill, spec["decode_steps"])
+        free()
+    for arch, over, tbs in spec["walls"]:
+        cfg = family_cfg(spec, arch, over, param_sharding="1d")
+        batch = train_families_batch(torch, cfg, dev, *tbs, 27)
+        out["walls"][arch] = train_families_wall(torch, cfg, dev, batch, sync, lambda: None)
+        out["walls"][arch]["params"] = cfg.param_count()
+        free()
+    return out
+
+
+def leaf_errors(got: dict, want: dict):
+    """The worst updated leaf: its largest error over its largest magnitude,
+    the scale floored at 1e-3 of the model's largest (mLSTM's ``b_i``
+    moves by rounding noise)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    errs = {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-3 * top) for k, w in want.items()}
+    return max(errs.items(), key=lambda kv: kv[1])
+
+
+def phase_mesh_train_families_path(torch, core, build, device="cuda", spec=MESH_TRAIN_FAMILIES_SPEC):
+    """The configurations the mesh took last (see
+    ``MESH_TRAIN_FAMILIES_SPEC``): one process first runs every float32
+    step and the bf16 walls and frees the card; then 4 gloo ranks sharing
+    it run the float32 steps on (data 2, model 2) and the bf16 walls on
+    (data 1, model 4), and 3 ranks the uneven widths on (data 1, model 3).
+    Each float32 train step is held to one process's (loss, every updated
+    leaf, records dropped), each served case's logits too, its cache
+    placed as the sanitized ``cache_specs`` place it. It launches none of
+    K1-K4; a rank that fails fails the phase."""
+    import gc
+
+    from repro_torch.launch.mesh import spawn
+
+    phase = "mesh_train_families_path"
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    build.reset_counts()
+    one = train_families_one_process(torch, spec, dev)
+    launches = {k: v for k, v in build.counts().items() if k in KERNEL_NAMES}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(train_families_rank, math.prod(spec["parity_mesh"]), backend="gloo", device=device,
+                  args=(dict(spec, device=device, world="parity"),))
+    if math.prod(spec["walls_mesh"]) != len(ranks):
+        fail(phase, f"the meshes {spec['parity_mesh']} and {spec['walls_mesh']} differ in size")
+    uneven = spawn(train_families_rank, math.prod(spec["uneven_mesh"]), backend="gloo", device=device,
+                   args=(dict(spec, device=device, world="uneven"),))
+    spawn_s = time.perf_counter() - t0
+    launches = {k: launches.get(k, 0) + sum(r["launches"].get(k, 0) for r in ranks + uneven) for k in KERNEL_NAMES}
+    for r in ranks + uneven:
+        if r["device"].split(":")[0] != device or r["backend"] != "gloo":
+            fail(phase, f"rank {r['rank']} ran on {r['device']} over {r['backend']}")
+    problems, train, serve = [], {}, {}
+    for got_rank in (ranks[0], uneven[0]):
+        for name, got in got_rank["train"].items():
+            want = one["train"][name]
+            worst = leaf_errors(got["params"], want["params"])
+            rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            train[name] = dict(loss=got["loss"], one_loss=want["loss"], loss_rel_err=rel, leaf_worst=worst,
+                               overflow=got["overflow"], one_overflow=want["overflow"],
+                               dropped=got["drops"], one_dropped=want["drops"])
+            if (rel > MESH_TOL or worst[1] > MESH_TOL or got["overflow"] != want["overflow"]
+                    or got["drops"] != want["drops"]):
+                problems.append(f"{name} train step on the mesh against one process: {train[name]}")
+        for name, got in got_rank["serve"].items():
+            want = one["serve"][name]["logits"]
+            errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got["logits"], want)]
+            serve[name] = dict(logits_rel_err=errs, cache_placed_by_cache_specs=got["placed"])
+            if len(errs) != len(want) or max(errs) > MESH_TOL or not got["placed"]:
+                problems.append(f"{name} served on the mesh against one process: {serve[name]}")
+    walls = {}
+    for arch, over, tbs in spec["walls"]:
+        rows = [r["walls"][arch] for r in ranks]
+        if not all(math.isfinite(x) for row in rows for x in row["losses"]):
+            problems.append(f"{arch} bf16 losses {[row['losses'] for row in rows]}")
+        walls[arch] = dict(cut=over, batch=tbs, params=one["walls"][arch]["params"], mesh=spec["walls_mesh"],
+                           per_rank={k: [row[k] for row in rows] for k in ("walls_s", "tokens_per_s",
+                                                                            "peak_mem_gib", "losses")},
+                           host_split_rank0=rows[0]["host_split"],
+                           one_process={k: v for k, v in one["walls"][arch].items() if k != "host_split"})
+    if any(launches.values()):
+        problems.append(f"launched {launches}")
+    emit({"phase": phase, "ok": not problems, "parity_mesh": spec["parity_mesh"],
+          "uneven_mesh": spec["uneven_mesh"], "backend": "gloo", "ranks": [len(ranks), len(uneven)],
+          "transport": "gloo through the host, every rank on one card: says nothing of NVLink",
+          "train": train, "serve": serve, "tol": MESH_TOL, "opt": MESH_OPT,
+          "cases": dict(train=spec["train"], serve=spec["serve"], uneven=spec["uneven"]),
+          "walls": walls, "launches": launches, "spawn_and_run_s": spawn_s,
+          "nvidia_smi": nvidia_smi() if device == "cuda" else None, "phase_s": time.perf_counter() - t_phase})
+    if problems:
+        fail(phase, "; ".join(problems))
+    return launches
+
 
 def phase_ladder(torch, core):
     cfg = core.SortConfig(p=128, n_per_proc=8192, **SLICE)
@@ -4711,7 +5065,8 @@ def main() -> int:
                  "delta_path": phase_delta_path, "lm_path": phase_lm_path,
                  "train_path": phase_train_path, "recurrent_path": phase_recurrent_path,
                  "audio_path": phase_audio_path, "sharded_path": phase_sharded_path,
-                 "mesh_path": phase_mesh_path, "mesh_families_path": phase_mesh_families_path}
+                 "mesh_path": phase_mesh_path, "mesh_families_path": phase_mesh_families_path,
+                 "mesh_train_families_path": phase_mesh_train_families_path}
         for name in sys.argv[2].split(","):
             paths[name](torch, core, build)
         return 0
@@ -4784,6 +5139,12 @@ def main() -> int:
         launches[name] += families_launches.get(name, 0)
     emit({"phase": "mesh_families_launches", "ok": True, "launches": families_launches,
           "none_as_expected": not any(families_launches.values())})
+    # nor do the families trained on a mesh, dp serving or uneven widths
+    train_families_launches = phase_mesh_train_families_path(torch, core, build)
+    for name in KERNEL_NAMES:
+        launches[name] += train_families_launches.get(name, 0)
+    emit({"phase": "mesh_train_families_launches", "ok": True, "launches": train_families_launches,
+          "none_as_expected": not any(train_families_launches.values())})
     phase_ladder(torch, core)
     phase_profile(torch, core)
 
@@ -4810,7 +5171,8 @@ def main() -> int:
                             launches=launches[name], max_abs_err=e["max_abs_err"], ms=e["ms"],
                             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"], bound_by=e["bound_by"],
                             library_ms=e["library_ms"], sharded_launches=sharded_launches[name],
-                            mesh_families_launches=families_launches[name]))
+                            mesh_families_launches=families_launches[name],
+                            mesh_train_families_launches=train_families_launches[name]))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,13 +19,16 @@ A decode cache is ``{"k", "v": (L, B, S_max, KV, hd), "xk", "xv": (L, B,
 T, KV, hd), "pos"}``; ``k`` and ``v`` are updated in place, ``pos`` is a
 scalar or one position per lane, as in ``models.transformer``.
 
-On a mesh (serving under ``1d`` or ``2d``; the reference trains this
-family under ``dp`` only) the steps are tensor-parallel as the
-transformer's (``models.transformer._MeshStep``; whisper's 6 heads do not
-divide a model axis of 4 or 16, so its q, k and v are gathered to every
-head there): the encoder runs over the frames (sequence-split between
-blocks where they divide the model axis), its output is gathered to every
-frame for the cross K/V, and the cache comes back placed by the sanitized
+On a mesh (train, prefill and decode, under every policy) the ``1d`` and
+``2d`` steps are tensor-parallel as the transformer's
+(``models.transformer._MeshStep``; whisper's 6 heads do not divide a
+model axis of 4 or 16, so its q, k and v are gathered to every head
+there), and the ``dp`` steps run the one-device blocks on each rank's
+rows: the encoder runs over the frames (sequence-split between blocks
+where they divide the model axis), its output is gathered to every frame
+for the cross K/V (its gradient summed back), each decoder block's self-
+and cross-attention go through the transformer's mesh attention, the loss
+is its mesh loss, and the cache comes back placed by the sanitized
 ``cache_specs``: K and V with the sequence over the model axis, ``xk`` and
 ``xv`` with the frames over it where they divide it (replicated where
 not). Decode runs flash-decode over the sequence-split cache and over
@@ -148,6 +151,8 @@ def forward_train(
     mesh_info=None,
     extras: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Dict]:
+    if tfm._on_mesh(mesh_info):
+        return _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras)
     enc_out = encode(cfg, params, _frames(extras))
     x = _decoder_input(cfg, params, tokens)
     # under cfg.remat each decoder block (its cross K/V included) keeps only
@@ -239,24 +244,64 @@ def decode_step(
     return logits, {"k": cache["k"], "v": cache["v"], "xk": cache["xk"], "xv": cache["xv"], "pos": pos}
 
 
+def _norm(cfg, ms, x, w):
+    return rmsnorm(x, ms.fetch(w, None, ms.tok), cfg.norm_eps)
+
+
 def _mesh_mlp(cfg, ms, x, lp):
-    y, _ = tfm._mesh_mlp(cfg, ms, lp, rmsnorm(x, ms.fetch(lp["mlp_norm"]), cfg.norm_eps), moe=False)
+    y, _ = tfm._mesh_mlp(cfg, ms, lp, _norm(cfg, ms, x, lp["mlp_norm"]), moe=False)
     return x + y
 
 
 def _encode_mesh(cfg, params, frames, mesh_info) -> torch.Tensor:
     """:func:`encode` on a mesh: this rank's rows, every frame on every
-    model rank at the end (the cross K/V's input)."""
+    model rank at the end (the cross K/V's input; its gradient, partial
+    over the model axis, summed on the way back)."""
     b, t, _ = frames.shape
-    ms = tfm._serving_step(cfg, mesh_info, b, t)
+    ms = tfm._MeshStep(cfg, mesh_info, b, t)
     dt = dtype_of(cfg)
     x = frames[ms.block_rows].to(dt) + sinusoidal_positions(t, cfg.d_model, frames.device).to(dt)
     x = ms.shard_residual(x)
     for lp in params.enc:
-        o, _ = tfm._mesh_attention(cfg, ms, lp, rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps), None,
-                                   causal=False)
+        o, _ = tfm._mesh_attention(cfg, ms, lp, _norm(cfg, ms, x, lp["attn_norm"]), None, causal=False)
         x = _mesh_mlp(cfg, ms, x + o, lp)
-    return ms.gather_seq(rmsnorm(x, ms.fetch(params.enc_final_norm), cfg.norm_eps))
+    return ms.gather_seq(_norm(cfg, ms, x, params.enc_final_norm))
+
+
+def _dec_block_mesh(cfg, ms, x, lp, enc):
+    """:func:`_dec_block` on a mesh (train and prefill): returns (x, the
+    self- and cross-attention's (k, v, head-split))."""
+    o, kv = tfm._mesh_attention(cfg, ms, lp, _norm(cfg, ms, x, lp["attn_norm"]), None)
+    x = x + o
+    o2, xkv = tfm._mesh_attention(cfg, ms, lp, _norm(cfg, ms, x, lp["cross_norm"]), None, causal=False, kf=enc,
+                                  prefix="x")
+    return _mesh_mlp(cfg, ms, x + o2, lp), kv, xkv
+
+
+def _dec_train_mesh(cfg, ms, x, lp, enc):
+    return _dec_block_mesh(cfg, ms, x, lp, enc)[0]
+
+
+def _mesh_decoder_input(cfg, ms, params, tokens) -> torch.Tensor:
+    """This rank's rows of the decoder's input, in the residual layout."""
+    x = F.embedding(tokens[ms.block_rows].long(), ms.fetch(params.embed, None, ms.bax))
+    return ms.shard_residual(x + sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device).to(dtype_of(cfg)))
+
+
+def _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras):
+    """``forward_train`` on a mesh: the same loss as on one device
+    (``transformer._mesh_loss``), each decoder block rematerialized under
+    ``cfg.remat`` (the encoder not, as on one device)."""
+    enc = _encode_mesh(cfg, params, _frames(extras), mesh_info)
+    ms = tfm._MeshStep(cfg, mesh_info, *tokens.shape)
+    x = _mesh_decoder_input(cfg, ms, params, tokens)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in params.dec:
+        if remat:
+            x = checkpoint(_dec_train_mesh, cfg, ms, x, lp, enc, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _dec_train_mesh(cfg, ms, x, lp, enc)
+    return tfm._dp_share(ms, tfm._mesh_loss(cfg, ms, params, x, labels)), {}
 
 
 def _mesh_shapes(cfg, b: int, cache_len: int, t: int) -> Dict[str, torch.Tensor]:
@@ -272,22 +317,15 @@ def _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len):
     enc = _encode_mesh(cfg, params, _frames(extras), mesh_info)
     b, s = tokens.shape
     cache_len = cache_len or s
-    ms = tfm._serving_step(cfg, mesh_info, b, s)
-    dt = dtype_of(cfg)
-    x = F.embedding(tokens[ms.block_rows].long(), ms.fetch(params.embed))
-    x = ms.shard_residual(x + sinusoidal_positions(s, cfg.d_model, x.device).to(dt))
+    ms = tfm._MeshStep(cfg, mesh_info, b, s)
+    x = _mesh_decoder_input(cfg, ms, params, tokens)
     shapes = _mesh_shapes(cfg, b, cache_len, enc.shape[1])
     specs, cache = tfm._mesh_cache(cfg, ms, shapes, x.device)
     lo, hi = tfm._seq_block(ms, specs["k"], shapes["k"].shape)
     hi = min(hi, s)  # this rank's filled cache rows
     flo, fhi = tfm._seq_block(ms, specs["xk"], shapes["xk"].shape)  # and its frames
     for i, lp in enumerate(params.dec):
-        h = rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps)
-        o, kv = tfm._mesh_attention(cfg, ms, lp, h, None)
-        x = x + o
-        hx = rmsnorm(x, ms.fetch(lp["cross_norm"]), cfg.norm_eps)
-        o2, xkv = tfm._mesh_attention(cfg, ms, lp, hx, None, causal=False, kf=enc, prefix="x")
-        x = _mesh_mlp(cfg, ms, x + o2, lp)
+        x, kv, xkv = _dec_block_mesh(cfg, ms, x, lp, enc)
         (k, v), (ek, ev) = tfm._every_head(ms, kv), tfm._every_head(ms, xkv)
         if hi > lo:
             cache["k"][i, :, : hi - lo] = k[:, lo:hi]
@@ -317,8 +355,11 @@ def _decode_step_mesh(cfg, params, cache, token, mesh_info):
     for i, lp in enumerate(params.dec):
         h = rmsnorm(x, ms.fetch(lp["attn_norm"]), cfg.norm_eps)
         x = x + tfm._mesh_decode_attention(cfg, ms, lp, h, kl[i], vl[i], pos, None, offset, seq_split)
-        hx = ms.gather_seq(rmsnorm(x, ms.fetch(lp["cross_norm"]), cfg.norm_eps))
-        qx = ms.gather_cols(hx @ ms.fetch(lp["xwq"], 1)).reshape(b, 1, H, hd)
+        hx = rmsnorm(x, ms.fetch(lp["cross_norm"]), cfg.norm_eps)
+        if ms.whole(lp["xwq"]):
+            qx = (hx @ ms.fetch(lp["xwq"])).reshape(b, 1, H, hd)
+        else:
+            qx = ms.gather_cols(ms.gather_seq(hx) @ ms.fetch(lp["xwq"], 1)).reshape(b, 1, H, hd)
         ox = tfm._decode_attend(ms, qx, xkl[i], xvl[i], last_frame, xoffset, frame_split)
         x = _mesh_mlp(cfg, ms, x + tfm._decode_out(cfg, ms, ox, lp["xwo"]), lp)
     logits = tfm._last_logits(cfg, ms, params, x)

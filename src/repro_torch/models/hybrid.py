@@ -22,15 +22,19 @@ expert id. A decode cache is ``{"k", "v": (blocks, B, S_max, KV, hd),
 B, dk-1, di)), "pos"}``, updated in place; ``pos`` is a scalar or one
 position per lane, as in ``models.transformer``.
 
-On a mesh (``1d`` or ``2d``; ``dp`` trains through the train step's
-data-parallel loss) a super-block runs as the reference's mesh hooks do,
-made explicit (``models.transformer._MeshStep``): the Megatron-SP
-residual, the attention's heads split over the model axis with the
-cache's sequence split and flash-decode, the MoE slots through the
-transformer's four-way choice with the whole batch's aux terms, the dense
-MLP column- then row-parallel, and each Mamba slot on this rank's
+On a mesh (train, prefill and decode, under every policy) a super-block
+runs as the reference's mesh hooks do, made explicit
+(``models.transformer._MeshStep``): under ``1d`` and ``2d`` the
+Megatron-SP residual (replicated over the model axis where the sequence
+does not divide it), the attention's heads split over the model axis
+with the cache's sequence split and flash-decode, the MoE slots through
+the transformer's four-way choice with the whole batch's aux terms, the
+dense MLP column- then row-parallel, and each Mamba slot on this rank's
 channels (``ssm.mamba_block(mesh=)``: the sequence gathered first, its
-state's channels split as the cache's specs place them).
+state's channels split as the cache's specs place them). Under ``dp`` the
+same steps run the one-device sub-layers on each rank's rows; its decode
+step gathers a Mamba state's channels for the step and keeps its own
+block of the new one.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from . import attention as attn
 from . import moe as moe_mod
+from . import sharding as shd
 from . import ssm
 from . import transformer as tfm
 from .layers import _dense, dtype_of, init_attn, init_mlp, next_token_loss, rmsnorm, rope
@@ -173,10 +178,15 @@ def _super_block_mesh(cfg, ms, x, bp, positions, states=None, pos=None, offset=0
                 o = tfm._mesh_decode_attention(cfg, ms, bp["attn"], h, states["k"], states["v"], pos, positions,
                                                offset, seq_split)
         else:
-            mp = {k: ms.fetch(bp["mamba"][i_mamba][k], d, ms.bax) for k, d in _MAMBA_SPLIT.items()}
-            st = None if states is None else states["mamba"][i_mamba]
-            o, new_st = ssm.mamba_block(mp, ms.gather_seq(h), cfg, st, mesh=ms)
-            o = ms.reduce_seq(o)
+            mb, st = bp["mamba"][i_mamba], None if states is None else states["mamba"][i_mamba]
+            if ms.whole(mb["out_proj"]):  # d_inner not split over the model axis: every channel on every rank
+                mp = {k: ms.fetch(mb[k], None, ms.bax) for k in _MAMBA_SPLIT}
+                o, new_st = ssm.mamba_block(mp, ms.gather_seq(h, summed=False), cfg, st)
+                o = ms.own_seq(o)
+            else:
+                mp = {k: ms.fetch(mb[k], d, ms.bax) for k, d in _MAMBA_SPLIT.items()}
+                o, new_st = ssm.mamba_block(mp, ms.gather_seq(h), cfg, st, mesh=ms)
+                o = ms.reduce_seq(o)
             new_states["mamba"].append(new_st)
             i_mamba += 1
         x = x + o
@@ -210,7 +220,7 @@ def _forward_train_mesh(cfg, params, tokens, labels, mesh_info):
     """``forward_train`` on a mesh: the same loss as on one device
     (``transformer._mesh_loss``), each super-block rematerialized under
     ``cfg.remat``."""
-    ms = tfm._mesh_train_step(cfg, mesh_info, tokens)
+    ms = tfm._MeshStep(cfg, mesh_info, *tokens.shape)
     x = tfm._mesh_embed(cfg, ms, params, tokens, {})
     positions = torch.arange(tokens.shape[1], device=x.device).expand(x.shape[0], tokens.shape[1])
     remat = cfg.remat and torch.is_grad_enabled()
@@ -233,7 +243,7 @@ def _prefill_mesh(cfg, params, tokens, mesh_info, cache_len):
     states channel-split), the last logits as one full (B, V) tensor on
     every rank."""
     b, s = tokens.shape
-    ms = tfm._serving_step(cfg, mesh_info, b, s)
+    ms = tfm._MeshStep(cfg, mesh_info, b, s)
     x = tfm._mesh_embed(cfg, ms, params, tokens, {})
     positions = torch.arange(s, device=x.device).expand(x.shape[0], s)
     shapes = cache_shapes(cfg, b, cache_len or s)
@@ -257,11 +267,15 @@ def _prefill_mesh(cfg, params, tokens, mesh_info, cache_len):
 def _decode_step_mesh(cfg, params, cache, token, mesh_info):
     """``decode_step`` on a mesh: the residual replicated over the model
     axis (one token), the attention slot as the transformer's mesh decode,
-    the Mamba slots on this rank's channels of their carried states; the
-    cache's local blocks updated in place."""
+    the Mamba slots on this rank's channels of their carried states (under
+    ``dp``, whose weights are whole, on every channel: the states gathered
+    for the step, this rank's block of the new ones kept); the cache's
+    local blocks updated in place."""
     ms, pos = tfm._decode_mesh_step(cfg, mesh_info, cache, token)
     kl, vl = cache["k"].to_local(), cache["v"].to_local()
-    hs, convs = (t.to_local() for t in cache["mamba"])
+    placed = [shd.spec_of(ms.mesh, t.placements, t.dim()) for t in cache["mamba"]]
+    used = [sp if ms.tp else shd.without(sp, ms.model) for sp in placed]
+    hs, convs = (shd.relay(t.to_local(), ms.mesh, sp, u, ms.model) for t, sp, u in zip(cache["mamba"], placed, used))
     offset, seq_split = tfm._cache_offset(ms, cache["k"])
     x = F.embedding(token[ms.block_rows].long(), ms.fetch(params.embed))[:, None, :]
     positions = pos.expand(x.shape[0])[:, None]
@@ -271,6 +285,9 @@ def _decode_step_mesh(cfg, params, cache, token, mesh_info):
         for j, (h, conv) in enumerate(st["mamba"]):
             hs[i, j] = h
             convs[i, j] = conv
+    for t, new, sp, u in zip(cache["mamba"], (hs, convs), placed, used):
+        if sp != u:
+            t.to_local().copy_(shd.relay(new, ms.mesh, u, sp, ms.model))
     logits = tfm._last_logits(cfg, ms, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "mamba": cache["mamba"], "pos": pos}
 

@@ -209,12 +209,19 @@ def place_model(model: Model, mesh) -> Model:
         shapes = dict(model.named_parameters())
         specs = shd.sanitize_specs(mesh, shd.param_specs(cfg, shapes, model_axis_size(mesh)), shapes)
         for name, p in shapes.items():
-            *path, leaf = name.split(".")
-            owner = model.get_submodule(".".join(path)) if path else model
-            placed = nn.Parameter(shd.place(p.detach(), mesh, specs[name]), requires_grad=p.requires_grad)
-            if isinstance(owner, (nn.ParameterList, nn.ParameterDict)):
-                owner[int(leaf) if isinstance(owner, nn.ParameterList) else leaf] = placed
-            else:
-                setattr(owner, leaf, placed)
+            set_parameter(model, name, shd.place(p.detach(), mesh, specs[name]), p.requires_grad)
     model.mesh = mesh
     return model
+
+
+def set_parameter(model: nn.Module, name: str, t: torch.Tensor, requires_grad: bool = False) -> None:
+    """Make ``t`` (a tensor or a ``DTensor``) the parameter ``name`` of
+    ``model``: a new ``nn.Parameter`` in its container. (Assigning a
+    ``DTensor`` parameter's ``.data`` keeps its old local tensor.)"""
+    *path, leaf = name.split(".")
+    owner = model.get_submodule(".".join(path)) if path else model
+    p = nn.Parameter(t, requires_grad=requires_grad)
+    if isinstance(owner, (nn.ParameterList, nn.ParameterDict)):
+        owner[int(leaf) if isinstance(owner, nn.ParameterList) else leaf] = p
+    else:
+        setattr(owner, leaf, p)

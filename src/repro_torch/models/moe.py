@@ -63,6 +63,7 @@ Two choices the reference makes implicitly are explicit here:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
@@ -149,6 +150,37 @@ class AuxOver:
 
     axes: tuple = ()
     redundant: int = 1
+
+
+#: the list :func:`counting_drops` collects into; None while it is off
+_DROPS: Optional[list] = None
+
+
+@contextlib.contextmanager
+def counting_drops():
+    """Count the records the capacity rule drops: yields a list to which
+    each MoE call of a train or prefill step appends its whole batch's
+    count (a 0-d int64 tensor, the same on every rank of a mesh step;
+    a rematerialized block appends again). A mesh step's counts are then
+    held to one process's, record for record of the batch."""
+    global _DROPS
+    prev, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = prev
+
+
+def _note_drops(dropped: torch.Tensor, aux_over: Optional[AuxOver]) -> None:
+    """Append the sum of ``dropped`` (this rank's mask of dropped records,
+    or their count) over the whole batch (``aux_over``'s axes of distinct
+    tokens) to the :func:`counting_drops` list, if it is on."""
+    if _DROPS is None:
+        return
+    n = dropped.detach().to(torch.int64).sum()
+    for a in () if aux_over is None else aux_over.axes:
+        n = a.all_reduce(n)
+    _DROPS.append(n)
 
 
 def _router(x2d: torch.Tensor, w: torch.Tensor, top_k: int, aux_over: Optional[AuxOver] = None):
@@ -256,6 +288,7 @@ def _grouped_gemm_moe(params: Dict, x2d: torch.Tensor, cfg: ArchConfig, capacity
     if rule is not None:
         ok = one_device_keep(experts, rows, rule, E)[order]
     aux["overflow"] = torch.any(~ok)
+    _note_drops(~ok, aux_over)
     rows = lanes * E * cap
     slot = torch.where(ok, slot, rows)  # dropped records -> scratch row
 
@@ -477,7 +510,7 @@ def one_device_keep(experts: torch.Tensor, rows: int, rule: OneDeviceCap, n_expe
     in the batch. Counts of each (row, expert) are gathered over the model
     axis and each row's totals over the batch axes: small integer
     collectives."""
-    e = experts.reshape(rows, -1).long()  # (rows, R): a row's records in order
+    e = experts.reshape(rows, experts.numel() // rows).long()  # (rows, R): a row's records in order
     n_rec = e.numel()
     # same-expert records before each one in its row: a stable sort by
     # (row, expert) and each record's place in its group
@@ -565,17 +598,21 @@ def moe_ep(params: Dict, x: torch.Tensor, cfg: ArchConfig, mesh_info: MoEMeshInf
         pair_cap = max(1, int(procs.max(counts.max())))
     cap = p * pair_cap
     aux = _finish_aux(aux, mesh_info, flag | torch.any(counts > pair_cap), aux_over)
+    _note_drops((flat_e == E).sum() + torch.clamp(counts - pair_cap, min=0).sum(), aux_over)
 
     # paper steps 10-11: segment rows + ONE all_to_all of the byte-packed
     # expert ids and token rows (the fused h-relation of core/routing)
     tix = torch.arange(pair_cap, device=dev)[None, :]
     # a padding row's index is a placeholder (its row is zeroed), spread so
     # that the gathers' backward finds no long run of one repeated index
-    gidx = ((bounds[:-1, None] + tix) % n).long()
+    gidx = ((bounds[:-1, None] + tix) % max(n, 1)).long()
     valid = tix < counts[:, None]
-    rows_e = torch.where(valid, sorted_e[gidx], torch.full((), -1, dtype=sorted_e.dtype, device=dev))
     # record i <-> token order[i] // k, as a broadcast and a permutation
     sorted_tok = x2d[:, None, :].expand(t_loc, k, D).reshape(n, D)[order]
+    if n == 0:  # no tokens here (a share of no positions): padding rows only, a zero row that keeps the
+        # exchange in the tokens' graph (its backward is a collective every rank must join)
+        sorted_e, sorted_tok = sorted_e.new_zeros(1), x2d.sum(0, keepdim=True)
+    rows_e = torch.where(valid, sorted_e[gidx], torch.full((), -1, dtype=sorted_e.dtype, device=dev))
     zero = torch.zeros((), dtype=x.dtype, device=dev)
     rows_x = torch.where(valid[..., None], sorted_tok[gidx], zero)
     recv_x, recv_e = _Dispatch.apply(rows_x, rows_e, procs)

@@ -30,9 +30,10 @@ from typing import Any, Callable, Dict
 import torch
 
 __all__ = ["Spec", "all_gather", "axes_of", "axis_names", "axis_procs", "axis_size", "batch_specs", "cache_specs",
-           "chunk", "dp_axes", "exchange", "full", "gather", "local_block", "local_of", "param_spec", "param_specs",
-           "place", "psum", "reduce_scatter", "regroup", "sanitize_specs", "scale_grad", "scatter_sum", "spec_of",
-           "split", "sum_grad", "to_placements", "tree_map"]
+           "chunk", "dp_axes", "exchange", "full", "gather", "gather_sizes", "local_block", "local_of", "param_spec",
+           "param_specs", "place", "psum", "reduce_scatter", "regroup", "relay", "sanitize_specs", "scale_grad",
+           "scatter_sum", "shares", "spec_of", "split", "split_sizes", "sum_grad", "to_placements", "tree_map",
+           "without"]
 
 
 class Spec(tuple):
@@ -152,23 +153,26 @@ def batch_specs(cfg, mesh, kind: str) -> Dict[str, Spec]:
     return specs
 
 
-def cache_specs(cfg, mesh, cache_tree: Any) -> Any:
+def cache_specs(cfg, mesh, cache_tree: Any, dp=None, model: Any = "model") -> Any:
     """KV caches: batch over the data axes, the sequence over the model axis
     (the flash-decode layout, ``models.attention``); recurrent states:
-    batch over the data axes, the channel dimension over the model axis."""
+    batch over the data axes, the channel dimension over the model axis.
+    ``dp`` names the batch's axes in place of ``dp_axes(mesh)`` (``()``:
+    none) and ``model=None`` splits nothing over the model axis: the
+    layout a ``dp``-policy prefill writes, each rank its own rows whole."""
     del cfg
-    dp = dp_axes(mesh)
+    dp = dp_axes(mesh) if dp is None else (tuple(dp) or None)
 
     def spec_for(path, leaf) -> Spec:
         name = path[0] if path else None
         ndim = leaf.dim()
         if name in ("k", "v", "xk", "xv"):  # (L, B, S, KV, hd)
-            return Spec(None, dp, "model", None, None)
+            return Spec(None, dp, model, None, None)
         if name == "mamba":  # (blocks, slots, B, di, N) / (blocks, slots, B, dk-1, di)
             if ndim == 5:
                 if path[-1] == 0:
-                    return Spec(None, None, dp, "model", None)
-                return Spec(None, None, dp, None, "model")
+                    return Spec(None, None, dp, model, None)
+                return Spec(None, None, dp, None, model)
             return Spec(*([None] * ndim))
         if name in ("mlstm", "slstm"):
             return Spec(None, dp, *([None] * (ndim - 2)))
@@ -177,6 +181,15 @@ def cache_specs(cfg, mesh, cache_tree: Any) -> Any:
         return Spec(*([None] * ndim))
 
     return _map_path(spec_for, cache_tree)
+
+
+def without(spec: Spec, axis: str) -> Spec:
+    """``spec`` with ``axis`` dropped from every entry."""
+    def drop(entry):
+        rest = tuple(a for a in axes_of(entry) if a != axis)
+        return None if not rest else rest[0] if len(rest) == 1 else rest
+
+    return Spec(*(drop(e) for e in spec))
 
 
 def sanitize_specs(mesh, spec_tree: Any, shape_tree: Any) -> Any:
@@ -464,6 +477,98 @@ def exchange(t: torch.Tensor, procs) -> torch.Tensor:
     """The all-to-all of ``t``'s (1, p, ...) chunks, its backward the same
     exchange (:class:`_Exchange`)."""
     return _Exchange.apply(t, procs)
+
+
+def shares(n: int, p: int) -> list:
+    """n split into p consecutive shares as even as they go, the first
+    ``n % p`` one larger."""
+    return [n // p + (i < n % p) for i in range(p)]
+
+
+def _gather_sizes(t: torch.Tensor, procs, dim: int, sizes: list) -> torch.Tensor:
+    """Every processor's ``t`` (``sizes[j]`` long along ``dim`` on processor
+    j) concatenated along ``dim``: padded to the longest, one all-gather."""
+    top = max(sizes)
+    pad = top - t.shape[dim]
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        t = torch.cat([t, t.new_zeros(shape)], dim)
+    every = all_gather(t, procs, dim)
+    return torch.cat([every.narrow(dim, j * top, n) for j, n in enumerate(sizes)], dim)
+
+
+def _own_share(t: torch.Tensor, procs, dim: int, sizes: list) -> torch.Tensor:
+    return t.narrow(dim, sum(sizes[: procs.index]), sizes[procs.index])
+
+
+class _SplitSizes(torch.autograd.Function):
+    """A tensor every processor holds alike -> this processor's share along
+    ``dim``; backward gathers the shares' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, procs, dim, sizes):
+        ctx.procs, ctx.dim, ctx.sizes = procs, dim, sizes
+        return _own_share(t, procs, dim, sizes).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_sizes(g.contiguous(), ctx.procs, ctx.dim, ctx.sizes), None, None, None
+
+
+class _GatherSizes(torch.autograd.Function):
+    """Every processor's share along ``dim`` -> the whole tensor; backward
+    this processor's share of a gradient every processor holds alike."""
+
+    @staticmethod
+    def forward(ctx, t, procs, dim, sizes):
+        ctx.procs, ctx.dim, ctx.sizes = procs, dim, sizes
+        return _gather_sizes(t.contiguous(), procs, dim, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_share(g, ctx.procs, ctx.dim, ctx.sizes).contiguous(), None, None, None
+
+
+def split_sizes(t: torch.Tensor, procs, dim: int, sizes: list) -> torch.Tensor:
+    """This processor's share of ``t`` along ``dim`` (``sizes``: every
+    processor's, :func:`shares`), ``t`` the same on every processor."""
+    return _SplitSizes.apply(t, procs, dim, list(sizes))
+
+
+def gather_sizes(t: torch.Tensor, procs, dim: int, sizes: list) -> torch.Tensor:
+    """The inverse of :func:`split_sizes`: every share, on every processor."""
+    return _GatherSizes.apply(t, procs, dim, list(sizes))
+
+
+def relay(t: torch.Tensor, mesh, src: Spec, dst: Spec, axis: str = "model") -> torch.Tensor:
+    """This rank's block of a tensor placed by ``src`` as its block placed by
+    ``dst``, the two specs alike but for ``axis`` (no autograd): split
+    nowhere -> this rank's chunk; a dimension whose entry ends in ``axis``
+    (its minor axis) -> all-gathered; one dimension -> another by one
+    all-to-all over ``axis`` (a ``dp``-policy prefill's rows, every
+    position each, to the cache's positions over the model axis, every
+    row of the data block each)."""
+    def dim_of(spec):
+        return next((d for d, e in enumerate(spec) if axis in axes_of(e)), None)
+
+    if list(without(src, axis)) != list(without(dst, axis)):
+        raise ValueError(f"{src} and {dst} differ over other axes than {axis}")
+    s, d = dim_of(src), dim_of(dst)
+    if s == d:
+        return t
+    procs = axis_procs(mesh, axis)
+    if s is not None and axes_of(src[s])[-1] != axis:
+        raise ValueError(f"{axis} must be the minor axis of {src[s]}")
+    if s is None:
+        return chunk(t, procs, d).contiguous()
+    if d is None:
+        return all_gather(t, procs, s)
+    n = t.shape[d] // procs.p
+    x = t.movedim(d, 0)
+    x = x.reshape((1, procs.p, n) + tuple(x.shape[1:])).contiguous()  # chunk j of dim d to processor j
+    got = procs.all_to_all(x)[0]
+    return torch.cat([got[j].movedim(0, d) for j in range(procs.p)], dim=s).contiguous()
 
 
 def _regroup(t: torch.Tensor, procs, gates: int, dim: int, inverse: bool) -> torch.Tensor:

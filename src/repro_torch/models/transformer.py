@@ -251,26 +251,33 @@ class _MeshStep:
     tokens, ``Replicate`` where every rank computed the same gradient.
 
     Activations are local tensors of the global (B, S, ...) batch: B over
-    the data axes (:attr:`bax`, the sanitized prefix that divides it), S
-    over the model axis between blocks when ``cfg.seq_shard_activations``
-    holds and S divides (:attr:`sp`, Megatron-SP). Inside a block the
+    the data axes (:attr:`bax`, the sanitized prefix that divides it; a
+    decode step passes ``batch_axes``, the cache's), S over the model axis
+    between blocks when ``cfg.seq_shard_activations`` holds and S divides
+    (:attr:`sp`, Megatron-SP), else every position on every model rank (the
+    reference's ``_shard_residual`` with ``seq=None``). Inside a block the
     sequence is gathered once before the column-parallel products and the
     row-parallel output is reduce-scattered back (:meth:`gather_seq`,
-    :meth:`reduce_seq`), each collective with its transpose as its
-    backward (``sharding``'s explicit collectives: ``DTensor``'s own
-    all-gather crashes under gloo on CUDA tensors). Under the ``dp``
-    policy the model axis is one more data axis, and a block is the
-    one-device block on local tokens.
+    :meth:`reduce_seq`; without SP the identity and an all-reduce), each
+    collective with its transpose as its backward (``sharding``'s explicit
+    collectives: ``DTensor``'s own all-gather crashes under gloo on CUDA
+    tensors). Under the ``dp`` policy the model axis is one more data axis,
+    and a block is the one-device block on local tokens.
 
-    Where the heads do not divide the model axis (whisper's 6 and xlstm's
-    4 at model 16: the sanitized specs still split the products' columns,
-    so a head straddles two ranks), :attr:`head_parallel` is false: q, k
+    A product runs split over the model axis only where its weight is
+    stored so (:meth:`split_dim`, the sanitized spec ``place_model``
+    placed): a width the model axis does not divide (tinyllama's 2048,
+    5632 and 32 heads at model 3) leaves its weights whole, and the
+    product then runs whole on every model rank, its output not summed
+    (:meth:`whole`, :meth:`own_seq`). Where the heads do not divide the
+    model axis but their width does (whisper's 6 and xlstm's 4 at model
+    16: a head straddles two ranks), :attr:`head_parallel` is false: q, k
     and v are gathered to every head, attention or the recurrence runs on
-    every model rank, and the row-parallel output takes this rank's
-    column block of it (:meth:`own_cols`).
+    every model rank, and the row-parallel output takes this rank's column
+    block of it (:meth:`own_cols`).
     """
 
-    def __init__(self, cfg: ArchConfig, mesh_info, b: int, s: int):
+    def __init__(self, cfg: ArchConfig, mesh_info, b: int, s: int, batch_axes: Optional[tuple] = None):
         from ..core.primitives import GroupProcs
 
         self.cfg, self.mi, self.b, self.s = cfg, mesh_info, b, s
@@ -279,20 +286,32 @@ class _MeshStep:
         self.model = mesh_info.model_axis
         self.tp = self.model not in mesh_info.data_axes
         self.m = mesh_info.model_size if self.tp else 1
-        self.rank_m = mesh_info.index(self.model) if self.tp else 0
-        entry = shd.sanitize_specs(self.mesh, shd.Spec(tuple(mesh_info.data_axes)),
-                                   torch.empty((b,), device="meta"))[0]
+        self.rank_m = mesh_info.index(self.model)  # this rank's place on the model axis
+        axes = tuple(mesh_info.data_axes if batch_axes is None else batch_axes)
+        entry = shd.sanitize_specs(self.mesh, shd.Spec(axes), torch.empty((b,), device="meta"))[0]
         self.bax = shd.axes_of(entry)  # the axes the batch splits over
         self.sp = self.tp and cfg.seq_shard_activations and s > 1 and s % self.m == 0
         self.tok = self.bax + ((self.model,) if self.sp else ())  # axes of distinct tokens
-        widths = {"d_model": cfg.d_model, "d_ff": cfg.d_ff, "the heads' width": cfg.n_heads * cfg.hd}
-        uneven = {k: w for k, w in widths.items() if self.tp and w % self.m}
-        if uneven:
-            raise NotImplementedError(f"{cfg.name}: {uneven} must divide the model axis ({self.m}) for tensor "
-                                      "parallelism")
         self.head_parallel = not self.tp or cfg.n_heads % self.m == 0
         self.procs = {a: GroupProcs.from_mesh(self.mesh, a) for a in self.names}
         self.block_rows = shd.local_block(self.mesh, shd.Spec(entry), (b,))[0]
+
+    def split_dim(self, w) -> Optional[int]:
+        """The dimension of parameter ``w`` stored split over the model
+        axis; None where it is whole on every model rank (its sanitized
+        spec dropped the split, or no tensor parallelism)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        if not self.tp or not isinstance(w, DTensor):
+            return None
+        p = w.placements[self.names.index(self.model)]
+        return p.dim if isinstance(p, Shard) else None
+
+    def whole(self, w) -> bool:
+        """Whether a product of ``w`` runs whole on every model rank (its
+        weight not split over the model axis: the ``dp`` policy, or a
+        width the model axis does not divide)."""
+        return self.split_dim(w) is None
 
     # ----------------------------------------------------------- layouts
     def shard_residual(self, x: torch.Tensor) -> torch.Tensor:
@@ -301,16 +320,20 @@ class _MeshStep:
         model axis under SP; its gradient gathered on the way back."""
         return shd.split(x, self.procs[self.model], 1) if self.sp else x
 
-    def gather_seq(self, h: torch.Tensor) -> torch.Tensor:
+    def gather_seq(self, h: torch.Tensor, summed: bool = True) -> torch.Tensor:
         """The residual-layout ``h`` as the full sequence on every model
         rank (the reference's ``_head_shard`` point: the column-parallel
         products then give head-split q, k, v), its gradient summed over
         the model axis on the way back (reduce-scattered under SP,
-        all-reduced otherwise)."""
+        all-reduced otherwise); ``summed`` false where every model rank's
+        use of it is the same whole product, so its gradient is already
+        whole (this rank's chunk of it under SP, as it is otherwise)."""
         if not self.tp:
             return h
         mp = self.procs[self.model]
-        return shd.gather(h, mp, 1) if self.sp else shd.sum_grad(h, mp)
+        if self.sp:
+            return shd.gather(h, mp, 1, summed)
+        return shd.sum_grad(h, mp) if summed else h
 
     def reduce_seq(self, y: torch.Tensor) -> torch.Tensor:
         """A row-parallel product's partial sums (full sequence) summed over
@@ -320,6 +343,12 @@ class _MeshStep:
             return y
         mp = self.procs[self.model]
         return shd.scatter_sum(y, mp, 1) if self.sp else shd.psum(y, mp)
+
+    def own_seq(self, y: torch.Tensor) -> torch.Tensor:
+        """A whole product's output (full sequence, the same on every model
+        rank) in the residual layout: this rank's positions under SP, its
+        gradient gathered back; as it is otherwise."""
+        return shd.split(y, self.procs[self.model], 1) if self.sp else y
 
     def gather_heads(self, t: torch.Tensor) -> torch.Tensor:
         """(B_loc, S, h_loc, hd) head-split over the model axis -> every
@@ -418,7 +447,9 @@ def _mesh_qkv(cfg, ms: _MeshStep, lp, hf: torch.Tensor, kf: Optional[torch.Tenso
     split too, else every KV head (the weights replicated or gathered,
     their gradient a partial sum over the model axis: each rank's query
     heads add to it). Where a head straddles two ranks: q, k and v
-    gathered to every head. Returns (q, k, v, k and v head-split)."""
+    gathered to every head. Where ``wq`` is stored whole (the heads' width
+    does not divide the model axis): every head from the whole weights,
+    the same on every model rank. Returns (q, k, v, k and v head-split)."""
     kf = hf if kf is None else kf
     b, s, _ = hf.shape
     t = kf.shape[1]
@@ -427,6 +458,11 @@ def _mesh_qkv(cfg, ms: _MeshStep, lp, hf: torch.Tensor, kf: Optional[torch.Tenso
     def col(x, name):  # this rank's column block of x @ w
         return x @ ms.fetch(lp[prefix + name], 1, ms.bax)
 
+    def whole(x, name, heads):
+        return (x @ ms.fetch(lp[prefix + name], None, ms.bax)).reshape(b, x.shape[1], heads, hd)
+
+    if ms.whole(lp[prefix + "wq"]):
+        return whole(hf, "wq", H), whole(kf, "wk", KV), whole(kf, "wv", KV), False
     if ms.head_parallel:
         q = col(hf, "wq").reshape(b, s, H // m, hd)
         if KV % m == 0:
@@ -449,18 +485,26 @@ def _mesh_attention(cfg, ms: _MeshStep, lp, h, positions, *, window=0, causal=Tr
     (every head where they do not split), the row-parallel output
     reduce-scattered. ``positions`` None: no RoPE (whisper's sinusoids);
     ``kf``: the keys' input of a cross-attention. Returns (out, (k, v,
-    head-split)) with k, v roped, for the cache."""
-    hf = ms.gather_seq(h)
+    head-split)) with k, v roped, for the cache. Where the weights are
+    stored whole (:meth:`_MeshStep.whole`) the block runs whole on every
+    model rank, its output this rank's positions of it."""
+    whole = ms.whole(lp[prefix + "wq"])
+    hf = ms.gather_seq(h, summed=not whole)
+    if whole and kf is not None:  # the keys' gather sums every model rank's (whole) gradient
+        kf = shd.scale_grad(kf, 1.0 / ms.m)
     b, s, _ = hf.shape
     q, k, v, split = _mesh_qkv(cfg, ms, lp, hf, kf, prefix)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    ka, va = (k, v) if split or not ms.head_parallel else (_kv_for_heads(cfg, ms, k), _kv_for_heads(cfg, ms, v))
+    per_head = split or whole or not ms.head_parallel
+    ka, va = (k, v) if per_head else (_kv_for_heads(cfg, ms, k), _kv_for_heads(cfg, ms, v))
     if s > 1:
         o = attn.flash_attention(q, ka, va, causal=causal, window=window)
     else:
         o = attn.reference_attention(q, ka, va, causal=causal, window=window)
+    if whole:
+        return ms.own_seq(o.reshape(b, s, -1) @ ms.fetch(lp[prefix + "wo"], None, ms.bax)), (k, v, False)
     o = ms.own_cols(o.reshape(b, s, -1)) @ ms.fetch(lp[prefix + "wo"], 0, ms.bax)
     return ms.reduce_seq(o), (k, v, split)
 
@@ -475,8 +519,9 @@ def _every_head(ms: _MeshStep, kv) -> Tuple[torch.Tensor, torch.Tensor]:
 def _mesh_decode_qkv(cfg, ms: _MeshStep, lp, h, positions):
     """A decode step's q, k, v (B_loc, 1, ...) of every head on every model
     rank (roped where ``positions`` is given)."""
-    q, k, v, split = _mesh_qkv(cfg, ms, lp, ms.gather_seq(h))
-    q = ms.gather_heads(q) if ms.head_parallel else q
+    whole = ms.whole(lp["wq"])
+    q, k, v, split = _mesh_qkv(cfg, ms, lp, ms.gather_seq(h, summed=not whole))
+    q = ms.gather_heads(q) if ms.head_parallel and not whole else q
     if split:
         k, v = ms.gather_heads(k), ms.gather_heads(v)
     if positions is not None:
@@ -497,10 +542,12 @@ def _decode_attend(ms: _MeshStep, q, kc, vc, pos, offset, seq_split: bool, windo
 def _decode_out(cfg, ms: _MeshStep, o, wo) -> torch.Tensor:
     """Every head's (B_loc, 1, H, hd) decode output through the
     row-parallel ``wo``: this rank's column block, summed over the model
-    axis."""
+    axis; through the whole ``wo`` where it is stored whole."""
+    o = o.reshape(o.shape[0], 1, -1)
+    if ms.whole(wo):
+        return o @ ms.fetch(wo)
     c = cfg.n_heads * cfg.hd // ms.m
-    o = o.reshape(o.shape[0], 1, -1)[..., ms.rank_m * c: (ms.rank_m + 1) * c]
-    return ms.reduce_seq(o @ ms.fetch(wo, 0))
+    return ms.reduce_seq(o[..., ms.rank_m * c: (ms.rank_m + 1) * c] @ ms.fetch(wo, 0))
 
 
 def _mesh_decode_attention(cfg, ms: _MeshStep, lp, h, kc, vc, pos, positions, offset, seq_split, *, window=0):
@@ -513,19 +560,22 @@ def _mesh_decode_attention(cfg, ms: _MeshStep, lp, h, kc, vc, pos, positions, of
 
 
 def _mesh_mlp(cfg, ms: _MeshStep, lp, h, moe: Optional[bool] = None):
-    """The reference's four-way ``_mlp_block`` on the mesh: ``moe_tp`` on
-    local tokens under the ``dp`` policy; ``moe_ep`` (S > 1) or
-    ``moe_ep_decode`` when the experts cover the model axis; else the
-    experts' FFN width split over it (``moe_tp_sharded``, its sum
-    reduce-scattered into the residual layout). Every MoE path's aux terms
-    are the whole batch's, as on one device. A dense MLP (``moe`` false:
-    a hybrid's dense slots) is column- then row-parallel."""
+    """The reference's four-way ``_mlp_block`` on the mesh, by how the
+    weights are stored: whole (the ``dp`` policy, or a width the model
+    axis does not divide), the one-device layer on this rank's tokens
+    (``moe_tp`` for a MoE); the experts over the model axis, ``moe_ep``
+    (S > 1) or ``moe_ep_decode``; else the experts' FFN width split over
+    it (``moe_tp_sharded``, its sum reduce-scattered into the residual
+    layout). Every MoE path's aux terms are the whole batch's, as on one
+    device. A dense MLP (``moe`` false: a hybrid's dense slots) stored
+    split is column- then row-parallel."""
     moe = bool(cfg.moe_experts) if moe is None else moe
-    if not ms.tp:
+    split = ms.split_dim(lp["w_gate"])
+    if split is None:
         if not moe:
-            return swiglu(h, {k: ms.fetch(lp[k]) for k in ("w_gate", "w_up", "w_down")}), {}
-        moe_params = {k: ms.fetch(lp[k]) for k in ("router", "w_gate", "w_up", "w_down")}
-        y, aux = moe_mod.moe_tp(moe_params, h, cfg, aux_over=ms.aux_over(ms.tok), rule=_batch_rule(cfg, ms))
+            return swiglu(h, {k: ms.fetch(lp[k], None, ms.tok) for k in ("w_gate", "w_up", "w_down")}), {}
+        moe_params = {k: ms.fetch(lp[k], None, ms.tok) for k in ("router", "w_gate", "w_up", "w_down")}
+        y, aux = moe_mod.moe_tp(moe_params, h, cfg, aux_over=ms.aux_over(ms.tok), rule=_batch_rule(cfg, ms, ms.sp))
         return y, {**aux, "overflow": _any(ms, aux["overflow"])}
     if not moe:
         hf = ms.gather_seq(h)
@@ -533,28 +583,8 @@ def _mesh_mlp(cfg, ms: _MeshStep, lp, h, moe: Optional[bool] = None):
         u = hf @ ms.fetch(lp["w_up"], 1, ms.bax)
         hh = torch.nn.functional.silu(g.float()).to(h.dtype) * u
         return ms.reduce_seq(hh @ ms.fetch(lp["w_down"], 0, ms.bax)), {}
-    E = cfg.moe_experts
-    if E >= ms.m:
-        if E % ms.m:
-            raise ValueError(f"the EP path needs the {E} experts divisible by the model axis ({ms.m})")
-        if ms.s > 1 and not ms.sp and torch.is_grad_enabled():
-            raise NotImplementedError("an EP train step needs the sequence split over the model axis")
-        params = {"router": ms.fetch(lp["router"], None, ms.tok),
-                  **{k: ms.fetch(lp[k], 0, ms.bax) for k in ("w_gate", "w_up", "w_down")}}
-        if ms.s > 1:
-            # the one-device rule: a batch of at most 512 records keeps every
-            # record; a larger one keeps ceil(n·cf/E) records an expert in the
-            # batch's order. The exchange is sized to the kept records'
-            # largest (src, dst) count (a capacity guess that overflowed
-            # would part the mesh from one device)
-            n = ms.b * ms.s * cfg.moe_top_k
-            rule = None
-            if n > 512:
-                rule = moe_mod.OneDeviceCap(int(-(-n * 1.25 // E)), tuple(ms.procs[a] for a in ms.bax),
-                                            ms.procs[ms.model] if ms.sp else None)
-            return moe_mod.moe_ep(params, h, cfg, ms.mi, capacity_factor=None, aux_over=ms.aux_over(ms.tok),
-                                  rule=rule)
-        return moe_mod.moe_ep_decode(params, h, cfg, ms.mi, aux_over=ms.aux_over(ms.bax, ms.m))
+    if split == 0:
+        return _mesh_ep(cfg, ms, lp, h)
     # experts replicated, their FFN width split: the router runs on the same
     # tokens on every model rank, so its statistics pass 1/m of their
     # gradient back on each (the gathered input's backward sums them)
@@ -562,17 +592,51 @@ def _mesh_mlp(cfg, ms: _MeshStep, lp, h, moe: Optional[bool] = None):
               "w_gate": ms.fetch(lp["w_gate"], 2, ms.bax), "w_up": ms.fetch(lp["w_up"], 2, ms.bax),
               "w_down": ms.fetch(lp["w_down"], 1, ms.bax)}
     return moe_mod.moe_tp_sharded(params, ms.gather_seq(h), cfg, ms.mi, aux_over=ms.aux_over(ms.bax, ms.m),
-                                  rule=_batch_rule(cfg, ms), reduce=ms.reduce_seq)
+                                  rule=_batch_rule(cfg, ms, False), reduce=ms.reduce_seq)
 
 
-def _batch_rule(cfg, ms: _MeshStep):
+def _mesh_ep(cfg, ms: _MeshStep, lp, h):
+    """The experts over the model axis. Each record goes to the exchange
+    once: under SP each model rank routes its own positions; with the
+    residual replicated over the model axis each routes an even share of
+    every row's positions (the first ranks one more where S does not
+    divide), and the outputs are gathered back to every position, the
+    gradient to this rank's share. The one-device capacity rule keeps a
+    batch of at most 512 records whole; a larger one keeps ceil(n·cf/E)
+    records an expert in the batch's order. The exchange is sized to the
+    kept records' largest (src, dst) count (a capacity guess that
+    overflowed would part the mesh from one device)."""
+    params = {"router": ms.fetch(lp["router"], None, ms.bax + (ms.model,)),
+              **{k: ms.fetch(lp[k], 0, ms.bax) for k in ("w_gate", "w_up", "w_down")}}
+    if ms.s == 1:
+        return moe_mod.moe_ep_decode(params, h, cfg, ms.mi, aux_over=ms.aux_over(ms.bax, ms.m))
+    mp = ms.procs[ms.model]
+    n = ms.b * ms.s * cfg.moe_top_k
+    rule = None
+    if n > 512:
+        rule = moe_mod.OneDeviceCap(int(-(-n * 1.25 // cfg.moe_experts)), tuple(ms.procs[a] for a in ms.bax), mp)
+    aux_over = ms.aux_over(ms.bax + (ms.model,))
+    if ms.sp:
+        return moe_mod.moe_ep(params, h, cfg, ms.mi, capacity_factor=None, aux_over=aux_over, rule=rule)
+    sizes = shd.shares(ms.s, ms.m)
+    y, aux = moe_mod.moe_ep(params, shd.split_sizes(h, mp, 1, sizes), cfg, ms.mi, capacity_factor=None,
+                            aux_over=aux_over, rule=rule)
+    return shd.gather_sizes(y, mp, 1, sizes), aux
+
+
+def _batch_rule(cfg, ms: _MeshStep, seq_split: bool):
     """The one-device capacity rule over the whole batch for a MoE path
-    whose ranks hold whole rows (the ``dp`` policy, the FFN-split experts);
-    none for a batch of at most 512 records, which keeps them all."""
+    on whole experts or experts split by their FFN width: its rows over
+    the data axes, and, where ``seq_split``, each row's positions over the
+    model axis (the whole experts on the SP residual); else every model
+    rank routes the row's every position (the FFN-split experts on the
+    gathered sequence, or the residual replicated over the model axis).
+    None for a batch of at most 512 records, which keeps them all."""
     n = ms.b * ms.s * cfg.moe_top_k
     if n <= 512:
         return None
-    return moe_mod.OneDeviceCap(int(-(-n * 1.25 // cfg.moe_experts)), tuple(ms.procs[a] for a in ms.bax))
+    return moe_mod.OneDeviceCap(int(-(-n * 1.25 // cfg.moe_experts)), tuple(ms.procs[a] for a in ms.bax),
+                                ms.procs[ms.model] if seq_split else None)
 
 
 def _any(ms: _MeshStep, flag: torch.Tensor) -> torch.Tensor:
@@ -583,12 +647,7 @@ def _any(ms: _MeshStep, flag: torch.Tensor) -> torch.Tensor:
 
 def _mesh_block(cfg, ms: _MeshStep, x, lp, positions):
     h = rmsnorm(x, ms.fetch(lp["attn_norm"], None, ms.tok), cfg.norm_eps)
-    if ms.tp:
-        o, kv = _mesh_attention(cfg, ms, lp, h, positions, window=cfg.sliding_window)
-    else:
-        p = {k: ms.fetch(lp[k]) for k in ("wq", "wk", "wv", "wo")}
-        o, (k, v) = _attention_block(cfg, p, h, positions, window=cfg.sliding_window)
-        kv = (k, v, False)
+    o, kv = _mesh_attention(cfg, ms, lp, h, positions, window=cfg.sliding_window)
     x = x + o
     h2 = rmsnorm(x, ms.fetch(lp["mlp_norm"], None, ms.tok), cfg.norm_eps)
     y, aux = _mesh_mlp(cfg, ms, lp, h2)
@@ -620,19 +679,10 @@ def _seq_offset(ms: _MeshStep, s_loc: int) -> int:
     return ms.rank_m * s_loc if ms.sp else 0
 
 
-def _mesh_train_step(cfg, mesh_info, tokens) -> _MeshStep:
-    b, s = tokens.shape
-    ms = _MeshStep(cfg, mesh_info, b, s)
-    if ms.tp and not ms.sp:
-        raise NotImplementedError(f"a tensor-parallel train step needs the sequence ({s}) split over the "
-                                  f"model axis ({ms.m}) and cfg.seq_shard_activations")
-    return ms
-
-
 def _forward_train_mesh(cfg, params, tokens, labels, mesh_info, extras):
     """``forward_train`` on a mesh: the same loss as on one device (see
     :func:`_mesh_loss`)."""
-    ms = _mesh_train_step(cfg, mesh_info, tokens)
+    ms = _MeshStep(cfg, mesh_info, *tokens.shape)
     x = _mesh_embed(cfg, ms, params, tokens, extras)
     positions = _positions(x.shape[0], tokens.shape[1], x.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -688,9 +738,13 @@ def _dp_share(ms: _MeshStep, loss: torch.Tensor) -> torch.Tensor:
 
 def _mesh_cache(cfg, ms: _MeshStep, shapes, device):
     """A cache of ``shapes`` (``cache_shapes``' full ``meta`` tensors) on
-    the mesh: its sanitized ``cache_specs`` and this rank's zero blocks on
-    ``device``."""
-    specs = shd.sanitize_specs(ms.mesh, shd.cache_specs(cfg, ms.mesh, shapes), shapes)
+    the mesh: the specs prefill writes it in and this rank's zero blocks
+    of them on ``device``. Under tensor parallelism those are the sanitized
+    ``cache_specs``; under the ``dp`` policy this rank's rows of the batch
+    (over the data axes and the model axis) with every other dimension
+    whole, which :func:`_placed_cache` re-lays."""
+    specs = shd.cache_specs(cfg, ms.mesh, shapes, **({} if ms.tp else dict(dp=ms.bax, model=None)))
+    specs = shd.sanitize_specs(ms.mesh, specs, shapes)
 
     def zeros(spec, t):
         block = shd.local_block(ms.mesh, spec, t.shape)
@@ -700,17 +754,24 @@ def _mesh_cache(cfg, ms: _MeshStep, shapes, device):
 
 
 def _placed_cache(ms: _MeshStep, specs, local, shapes):
-    """This rank's cache blocks as ``DTensor``s placed by ``specs``; a 0-d
-    leaf (``pos``) stays a plain tensor."""
+    """This rank's cache blocks, written in ``specs``, as ``DTensor``s
+    placed by the sanitized ``cache_specs`` (the reference's: the batch
+    over the data axes only, the sequence or the channels over the model
+    axis), re-laid by one exchange over the model axis where the two
+    differ (the ``dp`` policy's prefill); a 0-d leaf (``pos``) stays a
+    plain tensor."""
     from torch.distributed.tensor import DTensor
 
-    def put(spec, t, full):
+    placed = shd.sanitize_specs(ms.mesh, shd.cache_specs(ms.cfg, ms.mesh, shapes), shapes)
+
+    def put(spec, want, t, full):
         if not full.dim():
             return t
-        return DTensor.from_local(t, ms.mesh, shd.to_placements(ms.mesh, spec), run_check=False,
+        t = shd.relay(t, ms.mesh, spec, want, ms.model)
+        return DTensor.from_local(t, ms.mesh, shd.to_placements(ms.mesh, want), run_check=False,
                                   shape=full.shape, stride=full.stride())
 
-    return shd.tree_map(put, specs, local, shapes)
+    return shd.tree_map(put, specs, placed, local, shapes)
 
 
 def _seq_block(ms: _MeshStep, spec, shape) -> Tuple[int, int]:
@@ -737,12 +798,11 @@ def _last_logits(cfg, ms: _MeshStep, params, x) -> torch.Tensor:
     return ms.gather_rows((x @ ms.fetch(params.lm_head))[:, 0])
 
 
-def _serving_step(cfg, mesh_info, b: int, s: int) -> _MeshStep:
-    ms = _MeshStep(cfg, mesh_info, b, s)
-    if not ms.tp:
-        raise NotImplementedError("the mesh's serving steps shard the weights over the model axis: serve "
-                                  "with the 1d or 2d policy (the dry-run serves a dp arch under 1d)")
-    return ms
+def _decode_layout(cfg, mesh_info, b: int) -> _MeshStep:
+    """A decode step's layout: its rows over the data axes only, as the
+    reference places the token and the cache (``dp_axes(mesh)`` without
+    the config), whatever the policy."""
+    return _MeshStep(cfg, mesh_info, b, 1, batch_axes=shd.dp_axes(mesh_info.mesh))
 
 
 def _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len):
@@ -751,7 +811,7 @@ def _prefill_mesh(cfg, params, tokens, mesh_info, extras, cache_len):
     logits as one full (B, V) tensor on every rank."""
     b, s = tokens.shape
     cache_len = cache_len or s
-    ms = _serving_step(cfg, mesh_info, b, s)
+    ms = _MeshStep(cfg, mesh_info, b, s)
     x = _mesh_embed(cfg, ms, params, tokens, extras)
     positions = _positions(x.shape[0], s, x.device)
     shapes = cache_shapes(cfg, b, cache_len)
@@ -775,14 +835,15 @@ def _cache_offset(ms: _MeshStep, kv) -> Tuple[int, bool]:
     cache (L, B, S, KV, hd)."""
     from torch.distributed.tensor import Shard
 
-    split = ms.tp and any(isinstance(p, Shard) and p.dim == 2 for p in kv.placements)
+    p = kv.placements[ms.names.index(ms.model)]
+    split = isinstance(p, Shard) and p.dim == 2
     return (ms.rank_m * kv.to_local().shape[2] if split else 0), split
 
 
 def _decode_mesh_step(cfg, mesh_info, cache, token) -> Tuple[_MeshStep, torch.Tensor]:
     """A mesh decode step's layout and its position: one position for
     every row."""
-    ms = _serving_step(cfg, mesh_info, token.shape[0], 1)
+    ms = _decode_layout(cfg, mesh_info, token.shape[0])
     pos = cache["pos"] + 1
     if pos.dim():
         raise ValueError("the mesh's decode step takes one position for every row (a scalar pos)")

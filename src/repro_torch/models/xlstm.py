@@ -10,14 +10,18 @@ The cache is the recurrent state only, O(1) in the context length:
 ``{"mlstm": (C (nm, B, H, hd, hd), n (nm, B, H, hd), m (nm, B, H)),
 "slstm": (c, n, m) each (ns, B, D), "pos"}``, float32, updated in place.
 
-On a mesh (serving under ``1d`` or ``2d``; the reference trains this
-family under ``dp`` only) the steps are tensor-parallel
-(``models.transformer._MeshStep``): q, k and v gathered to every head, the
-mLSTM's recurrence run on every model rank, the sLSTM's on this rank's
-channels of its four gates, every row-parallel output summed over the
-model axis. The state is placed as the sanitized ``cache_specs`` place it:
-the batch over the data axes, replicated over the model axis, every copy
-the same (the sLSTM's channels are gathered back after each block).
+On a mesh (``models.transformer._MeshStep``; train, prefill and decode,
+under every policy) the ``1d`` and ``2d`` steps are tensor-parallel: q, k
+and v gathered to every head, the mLSTM's recurrence run on every model
+rank, the sLSTM's on this rank's channels of its four gates, every
+row-parallel output summed over the model axis into the residual layout
+(sequence-split between blocks where the sequence divides the model axis,
+else replicated over it). Under ``dp`` the same steps run the one-device
+blocks on each rank's rows. The train step's loss is the transformer's
+mesh loss (``transformer._mesh_loss``). The state is placed as the
+sanitized ``cache_specs`` place it: the batch over the data axes,
+replicated over the model axis, every copy the same (the sLSTM's channels
+are gathered back after each block).
 """
 from __future__ import annotations
 
@@ -70,26 +74,50 @@ def _block(core, cfg, x, lp, state=None):
     return x + ssm.xlstm_proj(lp, h2), st
 
 
+#: a core's leaves
+_CORE = {ssm.mlstm_core: ("wq", "wk", "wv", "wo", "w_i", "w_f", "b_i", "b_f"),
+         ssm.slstm_core: ("w_zifo", "b_zifo", "wo")}
+
+
 def _mesh_block(core, cfg, x, lp, state, ms):
     """:func:`_block` on a mesh: this rank's column blocks of the
     projections, the row-parallel outputs summed into the residual
-    layout."""
-    bax = ms.bax
-    h = ms.gather_seq(rmsnorm(x, ms.fetch(lp["norm"]), cfg.norm_eps))
+    layout. The gates' weights are whole on every rank, and a rank's
+    gradient of them comes only from its own heads or channels: a partial
+    sum over the model axis. Where the model axis does not divide a core's
+    or the projection's width (their weights stored whole), that part runs
+    whole on every model rank, its output not summed."""
+    bax, own = ms.bax, ms.bax + (ms.model,)
+    h = rmsnorm(x, ms.fetch(lp["norm"], None, ms.tok), cfg.norm_eps)
+    if ms.whole(lp["wo"]):
+        p = {k: ms.fetch(lp[k], None, bax) for k in _CORE[core]}
+        o, st = core(p, ms.gather_seq(h, summed=False), cfg, state)
+        x = x + ms.own_seq(o)
+        return x + _mesh_proj(cfg, ms, x, lp), st
+    h = ms.gather_seq(h)
     if core is ssm.mlstm_core:
         p = {k: ms.fetch(lp[k], 1, bax) for k in ("wq", "wk", "wv")}
-        p.update({k: ms.fetch(lp[k]) for k in ("w_i", "w_f", "b_i", "b_f")}, wo=ms.fetch(lp["wo"], 0, bax))
+        p.update({k: ms.fetch(lp[k], None, own) for k in ("w_i", "w_f", "b_i", "b_f")}, wo=ms.fetch(lp["wo"], 0, bax))
         o, st = core(p, h, cfg, state, mesh=ms)
     else:
-        b_zifo = ms.chunk_cols(ms.fetch(lp["b_zifo"]).reshape(4, -1)).reshape(-1)  # this rank's channels
+        # this rank's channels of each gate
+        b_zifo = ms.chunk_cols(ms.fetch(lp["b_zifo"], None, own).reshape(4, -1)).reshape(-1)
         p = {"w_zifo": ms.fetch(lp["w_zifo"], 1, bax), "b_zifo": b_zifo, "wo": ms.fetch(lp["wo"], 0, bax)}
         local = None if state is None else tuple(ms.chunk_cols(t) for t in state)
         o, st = core(p, h, cfg, local, mesh=ms)
         st = tuple(ms.gather_cols(t) for t in st)  # every channel again: the copies stay equal
     x = x + ms.reduce_seq(o)
-    h2 = ms.gather_seq(rmsnorm(x, ms.fetch(lp["norm2"]), cfg.norm_eps))
-    y = ssm.xlstm_proj({"up": ms.fetch(lp["up"], 1, bax), "down": ms.fetch(lp["down"], 0, bax)}, h2)
-    return x + ms.reduce_seq(y), st
+    return x + _mesh_proj(cfg, ms, x, lp), st
+
+
+def _mesh_proj(cfg, ms, x, lp):
+    """The block's up/down projection on a mesh: column- then row-parallel,
+    or on this rank's positions with the whole weights."""
+    h2 = rmsnorm(x, ms.fetch(lp["norm2"], None, ms.tok), cfg.norm_eps)
+    if ms.whole(lp["up"]) or ms.whole(lp["down"]):
+        return ssm.xlstm_proj({k: ms.fetch(lp[k], None, ms.tok) for k in ("up", "down")}, h2)
+    p = {"up": ms.fetch(lp["up"], 1, ms.bax), "down": ms.fetch(lp["down"], 0, ms.bax)}
+    return ms.reduce_seq(ssm.xlstm_proj(p, ms.gather_seq(h2)))
 
 
 def _stack(cfg, params, x, states=None, ms=None):
@@ -127,6 +155,8 @@ def forward_train(
     mesh_info=None,
     extras: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, Dict]:
+    if tfm._on_mesh(mesh_info):
+        return _forward_train_mesh(cfg, params, tokens, labels, mesh_info)
     x, _ = _stack(cfg, params, _embed(params, tokens))
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = x @ params.lm_head
@@ -180,12 +210,20 @@ def decode_step(
     return logits, {"mlstm": cache["mlstm"], "slstm": cache["slstm"], "pos": cache["pos"] + 1}
 
 
+def _forward_train_mesh(cfg, params, tokens, labels, mesh_info):
+    """``forward_train`` on a mesh: the same loss as on one device
+    (``transformer._mesh_loss``)."""
+    ms = tfm._MeshStep(cfg, mesh_info, *tokens.shape)
+    x, _ = _stack(cfg, params, tfm._mesh_embed(cfg, ms, params, tokens, {}), ms=ms)
+    return tfm._dp_share(ms, tfm._mesh_loss(cfg, ms, params, x, labels)), {}
+
+
 def _prefill_mesh(cfg, params, tokens, mesh_info):
     """``prefill`` on a mesh: the state comes back as ``DTensor``s placed by
     the sanitized ``cache_specs``, the last logits as one full (B, V)
     tensor on every rank."""
     b, s = tokens.shape
-    ms = tfm._serving_step(cfg, mesh_info, b, s)
+    ms = tfm._MeshStep(cfg, mesh_info, b, s)
     x = tfm._mesh_embed(cfg, ms, params, tokens, {})
     shapes = cache_shapes(cfg, b, 0)
     specs, cache = tfm._mesh_cache(cfg, ms, shapes, x.device)
@@ -198,7 +236,7 @@ def _prefill_mesh(cfg, params, tokens, mesh_info):
 def _decode_step_mesh(cfg, params, cache, token, mesh_info):
     """``decode_step`` on a mesh: this rank's rows of the state, updated in
     place, every model rank's copy alike."""
-    ms = tfm._serving_step(cfg, mesh_info, token.shape[0], 1)
+    ms = tfm._decode_layout(cfg, mesh_info, token.shape[0])
     local = {kind: tuple(t.to_local() for t in cache[kind]) for kind in ("mlstm", "slstm")}
     x = F.embedding(token[ms.block_rows].long(), ms.fetch(params.embed))[:, None, :]
     x, new = _stack(cfg, params, x, states=local, ms=ms)

@@ -17,19 +17,18 @@ returns them, so a caller's loop reads as the reference's
 On a ``DeviceMesh`` (the reference's sharded step, every rank calling the
 step with the same global batch): the parameters are placed by the
 sanitized ``param_specs`` (``models.place_model``); each rank computes
-the loss of its block of the batch, the whole batch's loss on every rank
-(the transformer and hybrid families through their mesh steps; the ssm
-and audio families, which the reference trains under ``dp`` only, on
-local tensors, their losses averaged over every rank). The gradients are reduced into the optimizer state's
-placement (``sspecs``: the parameters' own under ``1d``/``2d``; 2-D
-sharded under ``dp``, ZeRO-1), AdamW runs on the shards, and the updated
-shards are gathered back into the parameters' own placement.
+the loss of its block of the batch through its family's mesh step
+(``model.train_loss(mesh_info=...)``, every family under every policy),
+the whole batch's loss on every rank. The gradients are reduced into the
+optimizer state's placement (``sspecs``: the parameters' own under
+``1d``/``2d``; 2-D sharded under ``dp``, ZeRO-1), AdamW runs on the
+shards, and the updated shards are gathered back into the parameters'
+own placement.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -37,11 +36,8 @@ import torch
 from ..core.types import to_device
 from ..models import Model, make_mesh_info, place_model
 from ..models import sharding as shd
-from ..models.lm import model_axis_size
+from ..models.lm import model_axis_size, set_parameter
 from ..optim import OptConfig, apply_updates, init_state
-
-#: the families with mesh train steps of their own
-_MESH_TRAINED = ("dense", "moe", "vlm", "hybrid")
 
 
 def _check_mesh(mesh) -> None:
@@ -55,42 +51,7 @@ def make_loss_fn(model: Model, mesh=None):
     _check_mesh(mesh)
     if mesh is None:
         return model.train_loss
-    mi = make_mesh_info(mesh, model.cfg)
-    if model.cfg.family in _MESH_TRAINED:
-        return functools.partial(model.train_loss, mesh_info=mi)
-    if model.cfg.param_sharding != "dp":
-        raise NotImplementedError(f"the {model.cfg.family} family (xlstm, whisper) trains on a mesh under the dp "
-                                  f"policy only, as the reference trains it, not under {model.cfg.param_sharding}")
-    ms = _DataParallel(model, mi)
-    return ms.loss
-
-
-class _DataParallel:
-    """A family without mesh steps of its own under the ``dp`` policy: each
-    rank runs the one-device loss on its rows of the batch (split over the
-    sanitized prefix of the data axes that divides it), and the mean over
-    those ranks (equal rows each) is the whole batch's, its backward 1/n of
-    the gradient to every rank; ranks along the other data axes hold the
-    same rows, and each passes back its share of their gradient."""
-
-    def __init__(self, model: Model, mi) -> None:
-        from ..core.primitives import GroupProcs
-
-        self.model, self.mi = model, mi
-        self.procs = {a: GroupProcs.from_mesh(mi.mesh, a) for a in mi.data_axes}
-
-    def loss(self, batch: Mapping):
-        mesh, axes = self.mi.mesh, tuple(self.mi.data_axes)
-        b = next(iter(batch.values())).shape[0]
-        entry = shd.sanitize_specs(mesh, shd.Spec(axes), torch.empty((b,), device="meta"))[0]
-        split = shd.axes_of(entry)
-        rows = shd.local_block(mesh, shd.Spec(entry), (b,))[0]
-        loss, aux = self.model.train_loss({k: v[rows] for k, v in batch.items()})
-        for a in split:
-            loss = shd.psum(loss, self.procs[a])
-        loss = loss / shd.axis_size(mesh, split or None)
-        r = math.prod(self.procs[a].p for a in axes if a not in split)
-        return (shd.scale_grad(loss, 1.0 / r) if r > 1 else loss), aux
+    return functools.partial(model.train_loss, mesh_info=make_mesh_info(mesh, model.cfg))
 
 
 def _check_params(model: Model, params: Mapping[str, torch.Tensor]) -> None:
@@ -278,8 +239,8 @@ def init_all(model: Model, opt_cfg: OptConfig, mesh=None):
     if mesh is not None:
         place_model(model, mesh)
     with torch.no_grad():
-        for p in model.parameters():
-            p.data = p.data.clone()
+        for name, p in list(model.named_parameters()):
+            set_parameter(model, name, p.detach().clone())
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     if mesh is None:

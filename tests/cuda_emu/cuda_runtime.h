@@ -1,8 +1,11 @@
 // A CPU stand-in for the parts of the CUDA runtime that csrc/bitonic_sort.cu
 // and csrc/merge_path.cu use, so that their kernels can be compiled by a
-// host C++20 compiler and run on the CPU in the tests: one OS thread per
-// CUDA thread, a std::barrier per block for __syncthreads and one per warp
-// for __shfl_xor_sync and __ballot_sync. Blocks run one after another. The
+// host C++20 compiler and run on the CPU in the tests: every CUDA thread of a
+// block is a fiber (its own stack, ucontext) of one OS thread, run in turn
+// until it waits at a barrier, one barrier per block for __syncthreads and one
+// per warp for __shfl_xor_sync and __ballot_sync. Blocks run one after
+// another. One OS thread a block keeps a run's time its own: OS threads
+// spinning at barriers slowed tenfold on a loaded host. The
 // tests rewrite a source's dynamic shared-memory declaration to read
 // `emu_smem`, each `kernel<<<grid, block, smem, stream>>>(args)` to
 // `emu_launch(kernel, grid, block, smem, stream, args)`, and the cp.async
@@ -10,11 +13,12 @@
 // and `emu_cp_async_wait` (nothing left to wait for).
 #pragma once
 
-#include <barrier>
+#include <ucontext.h>
+
 #include <cstdint>
 #include <cstring>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -28,7 +32,7 @@
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
 };
-inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 struct alignas(16) int4 {
   int x, y, z, w;
 };
@@ -59,12 +63,42 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F*, int, 
   return cudaSuccess;
 }
 
+// The fibers of the running block, the scheduler's context and the fiber
+// that runs now.
+struct EmuFiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+};
+inline ucontext_t emu_scheduler;
+inline std::vector<EmuFiber>* emu_fibers;
+inline unsigned emu_current;
+inline const std::function<void()>* emu_body;
+
+inline void emu_yield() { swapcontext(&(*emu_fibers)[emu_current].ctx, &emu_scheduler); }
+
+// A barrier of `expected` fibers: the last to arrive opens it and goes on,
+// the others yield until it has opened.
+struct EmuBarrier {
+  unsigned expected = 0, count = 0;
+  uint64_t generation = 0;
+  void arrive_and_wait() {
+    const uint64_t g = generation;
+    if (++count == expected) {
+      count = 0;
+      ++generation;
+      return;
+    }
+    while (generation == g) emu_yield();
+  }
+};
+
 struct EmuWarp {
   uint64_t slot[32];
-  std::unique_ptr<std::barrier<>> bar;
+  EmuBarrier bar;
 };
-inline thread_local EmuWarp* emu_warp;
-inline std::barrier<>* emu_block_barrier;
+inline EmuWarp* emu_warp;
+inline EmuBarrier* emu_block_barrier;
 inline unsigned char* emu_smem;
 
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
@@ -83,10 +117,10 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned lanes = blockDim.x - (threadIdx.x & ~31u) < 32 ? blockDim.x - (threadIdx.x & ~31u) : 32;
   w.slot[lane] = pred != 0;
-  w.bar->arrive_and_wait();
+  w.bar.arrive_and_wait();
   unsigned mask = 0;
   for (unsigned l = 0; l < lanes; ++l) mask |= static_cast<unsigned>(w.slot[l]) << l;
-  w.bar->arrive_and_wait();
+  w.bar.arrive_and_wait();
   return mask;
 }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -98,9 +132,9 @@ U __shfl_xor_sync(unsigned, U v, int mask) {
   uint64_t bits = 0;
   std::memcpy(&bits, &v, sizeof(U));
   w.slot[lane] = bits;
-  w.bar->arrive_and_wait();
+  w.bar.arrive_and_wait();
   const uint64_t got = w.slot[lane ^ mask];
-  w.bar->arrive_and_wait();
+  w.bar.arrive_and_wait();
   U r;
   std::memcpy(&r, &got, sizeof(U));
   return r;
@@ -120,28 +154,49 @@ inline uint32_t __float_as_uint(float f) {
 }
 inline int32_t __float_as_int(float f) { return static_cast<int32_t>(__float_as_uint(f)); }
 
+inline void emu_fiber_entry() {
+  (*emu_body)();
+  (*emu_fibers)[emu_current].done = true;
+}
+
 template <class Kernel, class... Args>
 void emu_launch(Kernel kernel, unsigned grid, unsigned block, size_t smem, cudaStream_t,
                 Args... args) {
+  constexpr size_t kStack = 256 * 1024;
+  const std::function<void()> body = [&] { kernel(args...); };
   for (unsigned b = 0; b < grid; ++b) {
     std::vector<unsigned char> shared(smem + 16);
     emu_smem = shared.data();
-    std::barrier<> block_barrier(block);
+    EmuBarrier block_barrier;
+    block_barrier.expected = block;
     emu_block_barrier = &block_barrier;
     std::vector<EmuWarp> warps((block + 31) / 32);
     for (unsigned w = 0; w < warps.size(); ++w)
-      warps[w].bar = std::make_unique<std::barrier<>>(block - 32 * w < 32 ? block - 32 * w : 32);
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block; ++t) {
-      threads.emplace_back([&, t] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        blockDim.x = block;
-        gridDim.x = grid;
-        emu_warp = &warps[t / 32];
-        kernel(args...);
-      });
+      warps[w].bar.expected = block - 32 * w < 32 ? block - 32 * w : 32;
+    std::vector<EmuFiber> fibers(block);
+    for (auto& f : fibers) {
+      f.stack.reset(new char[kStack]);
+      getcontext(&f.ctx);
+      f.ctx.uc_stack.ss_sp = f.stack.get();
+      f.ctx.uc_stack.ss_size = kStack;
+      f.ctx.uc_link = &emu_scheduler;
+      makecontext(&f.ctx, emu_fiber_entry, 0);
     }
-    for (auto& th : threads) th.join();
+    emu_fibers = &fibers;
+    emu_body = &body;
+    blockIdx.x = b;
+    blockDim.x = block;
+    gridDim.x = grid;
+    for (bool running = true; running;) {
+      running = false;
+      for (unsigned t = 0; t < block; ++t) {
+        if (fibers[t].done) continue;
+        running = true;
+        emu_current = t;
+        threadIdx.x = t;
+        emu_warp = &warps[t / 32];
+        swapcontext(&emu_scheduler, &fibers[t].ctx);
+      }
+    }
   }
 }

@@ -1,9 +1,10 @@
 """K1 and K4's CUDA source, run on the CPU, against the plain networks.
 
 ``csrc/bitonic_sort.cu`` is compiled by the host C++ compiler against
-``tests/cuda_emu/cuda_runtime.h``, which runs every CUDA thread as an OS
-thread (barriers for ``__syncthreads`` and the warp shuffles), and its C
-entry points are called through ``ctypes`` on CPU tensors. So the kernels'
+``tests/cuda_emu/cuda_runtime.h``, which runs every CUDA thread of a block
+as a fiber of one OS thread (barriers for ``__syncthreads`` and the warp
+shuffles), and its C entry points are called through ``ctypes`` on CPU
+tensors. So the kernels'
 schedule — registers, lane shuffles, the shared-memory layouts and their
 barriers, the direction flips, the integer and float key codecs — is held
 here bit for bit against ``kernels/bitonic/ref.py`` (the TPU network stage
@@ -12,6 +13,10 @@ per row (128 .. 1024), and one CTA per row with one and two wide stages
 (2048, 4096). The card runs the same checks at every width up to 16384
 (``test_torch_kernels.py::test_kernels_match_plain_on_card``,
 ``chip_smoke.py``). Tolerance: exact bytes.
+
+This file holds K1 and the helpers; K4's cases are in
+``test_torch_bitonic_emulated_k4*.py`` (widths 128 and 1024; width 4096 by
+key dtype), each module building the library once for itself.
 """
 from __future__ import annotations
 
@@ -33,8 +38,9 @@ WIDTHS = (128, 256, 512, 1024, 2048, 4096)
 KEY_DTYPES = (torch.int32, torch.uint32, torch.float32, torch.bfloat16)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_emulated(tmp_path_factory):
+    """``csrc/bitonic_sort.cu`` built against the emulated runtime, its two
+    entry points typed (skips without a host C++ compiler)."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
@@ -47,7 +53,7 @@ def lib(tmp_path_factory):
     (out / "bitonic_sort.cpp").write_text(src)
     so = out / "libbitonic_emu.so"
     build = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-Wno-unknown-pragmas",
+        [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-Wno-unknown-pragmas",
          f"-I{EMU}", str(out / "bitonic_sort.cpp"), "-o", str(so)],
         capture_output=True, text=True, timeout=600,
     )
@@ -58,6 +64,11 @@ def lib(tmp_path_factory):
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
     return cdll
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return build_emulated(tmp_path_factory)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -104,10 +115,9 @@ def test_emulated_k1_matches_network(lib, dtype, width):
     assert torch.equal(_bits(_sort_rows(lib, x)), _bits(bref.sort_tiles(x)))
 
 
-@pytest.mark.parametrize("width", (128, 1024, 4096))
-@pytest.mark.parametrize("value_dtype", (torch.int16, torch.int32, torch.int64))
-@pytest.mark.parametrize("dtype", KEY_DTYPES)
-def test_emulated_k4_matches_network(lib, dtype, value_dtype, width):
+def check_k4(lib, dtype, value_dtype, width: int) -> None:
+    """K4 on heavy-tie keys and a permutation of values, bit for bit
+    against the network."""
     rows = 3 if width <= 1024 else 2
     keys = _keys(dtype, rows, width, width + 1, ties=True)
     g = torch.Generator().manual_seed(width)

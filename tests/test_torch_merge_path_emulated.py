@@ -1,7 +1,7 @@
 """K3's CUDA source, run on the CPU, against the plain window merge.
 
 ``csrc/merge_path.cu`` is compiled by the host C++ compiler against
-``tests/cuda_emu/cuda_runtime.h`` (every CUDA thread an OS thread; barriers
+``tests/cuda_emu/cuda_runtime.h`` (every CUDA thread a fiber of one OS thread; barriers
 for ``__syncthreads`` and the warp ballots; ``cp.async`` as a plain copy),
 and its C entry point is called through ``ctypes`` on CPU tensors. So both
 float routes — the merge route with its network pass over the reference
@@ -57,7 +57,7 @@ def lib(tmp_path_factory):
     (out / "merge_path.cpp").write_text(src)
     so = out / "libmerge_path_emu.so"
     build = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread", "-Wno-unknown-pragmas",
+        [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-Wno-unknown-pragmas",
          f"-I{out}", f"-I{EMU}", str(out / "merge_path.cpp"), "-o", str(so)],
         capture_output=True, text=True, timeout=600,
     )
