@@ -1,0 +1,4 @@
+"""``device_idle_pct``, read in a host-paced cell, where it moves ``keys_per_s.host_paced``."""
+from perfbench import manifest
+
+read = manifest.reader("device_idle_pct")

@@ -1,0 +1,4 @@
+"""``local_sort_roofline``, read in a host-paced cell, where it moves ``keys_per_s.host_paced``."""
+from perfbench import manifest
+
+read = manifest.reader("local_sort_roofline")

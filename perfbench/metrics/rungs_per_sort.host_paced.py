@@ -1,0 +1,4 @@
+"""``rungs_per_sort``, read in a host-paced cell, where it moves ``sort_p95_ms.host_paced``."""
+from perfbench import manifest
+
+read = manifest.reader("rungs_per_sort")
