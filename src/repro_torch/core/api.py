@@ -59,8 +59,18 @@ holds the stage functions bound to their config, and ``trace_counts``
 counts builds: one per key, as the reference counts one trace per key.
 ``SortConfig(obs=tracer)`` records a ``prepare`` span (synchronized with
 the device, so it includes the device's time), a ``route`` span per rung
-closed at the rung's overflow read, and the distribution and host-sync
-points (``repro_torch.obs``); an untraced run adds no host sync.
+closed at the rung's overflow read, each with the stream's time between
+CUDA events at its edges (``stream_ms``), and the distribution and
+host-sync points (``repro_torch.obs``). The driver enters an
+``obs.trace.lane`` around the prepare stage and around each rung's
+launch, so the stages inside (Ph2 ``local_sort`` with its ``tiles`` and
+``rank_merge``, Ph3 ``splitters``, Ph4 ``partition``, Ph5 ``exchange``,
+Ph6 ``merge_tree``/``merge_sort``) record ``stage`` spans on the sort's
+lane; :func:`bsp_sort` enters the same lanes. Under ``torch.profiler``
+the lanes and stages are ``bsp:`` ranges, traced or not. The tracer's
+events are read at the syncs the driver makes anyway: beyond the prepare
+span's synchronize, a traced run adds no host sync, and an untraced one
+none at all.
 ``planner=`` (a :class:`repro_torch.planner.CapacityPlanner`) starts the
 ladder at the rung its history learned for the sort's shape.
 ``SortConfig(chaos=plan)`` (``repro_torch.chaos``) injects capacity faults
@@ -80,6 +90,7 @@ import torch
 from ..chaos import resolve_chaos
 from ..obs import REGISTRY as _OBS
 from ..obs import resolve_tracer
+from ..obs.trace import lane as trace_lane
 from . import merge as merge_mod
 from . import primitives as prim
 from . import routing, splitters
@@ -221,8 +232,13 @@ def bsp_sort(
     """Sort a (p, n_per_proc) array with simulated processors (one tier)."""
     x, values, key_dtype = _inputs(x, values, device)
     cfg = _config(x, cfg, overrides)
+    tracer = resolve_tracer(cfg.obs)
+    tid = tracer.next_tid("sort") if tracer is not None else None
     prepare, route = _pipeline(cfg)
-    out = route(prepare(x, cfg, values), cfg, _positions(cfg, 0, generator, x.device))
+    with trace_lane(tracer, tid, "prepare", device=x.device):
+        prep = prepare(x, cfg, values)
+    with trace_lane(tracer, tid, "route", rung=0, tier=cfg.pair_capacity, device=x.device):
+        out = route(prep, cfg, _positions(cfg, 0, generator, x.device))
     return _result(*out, key_dtype)
 
 
@@ -421,7 +437,9 @@ class InFlightSort:
     ``tracer``/``trace_meta`` (``repro_torch.obs``) record one "route"
     span per rung, opened at its launch and closed at its overflow read,
     with the rung's h-relation size, superstep count and received-key
-    balance; the counts are read after the flag, the sync already made.
+    balance, and the stream's time from the launch to the rung's last
+    enqueued work; the counts and the events are read after the flag, the
+    sync already made. Each launch runs in the rung's ``obs.trace.lane``.
 
     ``chaos`` (a :class:`repro_torch.chaos.FaultPlan`) draws the sort's
     sequence number at construction, as the JAX package does; :meth:`wait`
@@ -456,9 +474,19 @@ class InFlightSort:
         self.trace_tid = self._meta.get("tid") if tracer is not None else None
         self._out: Optional[Tuple[SortResult, List[torch.Tensor], TierStats]] = None
         self._i = 0
-        self._t_launch = tracer.now() if tracer is not None else 0.0
-        with self._scope():
-            self._pending = run_tier(ladder[0][1], 0)
+        self._launch()
+
+    def _launch(self) -> None:
+        """Enqueue rung ``self._i`` in its lane, timed when traced."""
+        tier, tier_cfg = self._ladder[self._i]
+        tr, dev = self._tracer, self._meta.get("device")
+        if tr is not None:
+            self._t_launch = tr.now()
+            self._ev_launch = tr.mark(dev)
+        with self._scope(), trace_lane(tr, self.trace_tid, "route", rung=self._i, tier=tier, device=dev):
+            self._pending = self._run_tier(tier_cfg, self._i)
+        if tr is not None:
+            self._ev_done = tr.mark(dev)
 
     def done(self) -> bool:
         """Whether :meth:`wait` has already resolved (never blocks)."""
@@ -490,8 +518,10 @@ class InFlightSort:
         )
         if tier_cfg.p <= 64:
             args["recv"] = counts.tolist()  # per-processor key counts
-        tr.add_span("route", self._t_launch, t_end=t_end, cat=cat, tid=tid, **args)
+        tr.add_span("route", self._t_launch, t_end=t_end, cat=cat, tid=tid,
+                    stream=(self._ev_launch, self._ev_done), **args)
         tr.point("host_sync", cat=cat, tid=tid, what="overflow", rung=self._i, ok=ok)
+        tr.resolve()
 
     def wait(self) -> Tuple[SortResult, List[torch.Tensor], TierStats]:
         """Block until a rung's overflow flag is clean; escalate on faults."""
@@ -527,10 +557,7 @@ class InFlightSort:
                     "allgather/full tier cannot overflow (ladder: "
                     f"{[t for t, _ in self._ladder]})"
                 )
-            if self._tracer is not None:
-                self._t_launch = self._tracer.now()
-            with self._scope():
-                self._pending = self._run_tier(self._ladder[self._i][1], self._i)
+            self._launch()
 
 
 def _escalate(
@@ -554,12 +581,8 @@ def _trace_meta_for(tracer, x: torch.Tensor, values, cat: str = "sort") -> Optio
         "tid": tracer.next_tid("sort"),
         "cat": cat,
         "row_bytes": routing.packed_row_bytes(x.dtype, [v.dtype for v in values]),
+        "device": x.device,
     }
-
-
-def _host_keys(t: torch.Tensor) -> np.ndarray:
-    """Keys on the host in an order-keeping numpy dtype (bfloat16 as float32)."""
-    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _gathered_bounds(procs, bounds: np.ndarray, device) -> np.ndarray:
@@ -576,10 +599,12 @@ def _trace_prepared(tracer, meta: Dict, cfg: SortConfig, prep: PreparedSort, pro
     ``route="radix"``: the counted boundaries give the exact per-(src, dst)
     send counts of the coming h-relation. ``det``: the splitters are in
     hand, and searching each run for them gives the splitter-implied
-    boundary estimate (tag-blind) and the oversampling skew. iran/ran draw
-    their sample in the route stage, so nothing is prepared to read. A
-    sharded sort's ranks gather every processor's boundaries, so each
-    records the whole h-relation.
+    boundary estimate (tag-blind) and the oversampling skew: the search
+    runs on the device, in the keys' sort order (``np.searchsorted``'s,
+    left side), and only the (rows, p+1) boundaries come to the host,
+    never the runs. iran/ran draw their sample in the route stage, so
+    nothing is prepared to read. A sharded sort's ranks gather every
+    processor's boundaries, so each records the whole h-relation.
     """
     tid, cat = meta["tid"], meta.get("cat", "sort")
     row_bytes = int(meta.get("row_bytes", 4))
@@ -597,12 +622,11 @@ def _trace_prepared(tracer, meta: Dict, cfg: SortConfig, prep: PreparedSort, pro
             args["send_bytes"] = (sendc * row_bytes).tolist()  # per (src, dst)
         tracer.point("distribution", cat=cat, tid=tid, **args)
     elif cfg.algorithm == "det" and cfg.route == "sample" and prep.splits:
-        keys = _host_keys(prep.splits[0][0])  # replicated (p-1,) splitter keys
-        xs = _host_keys(prep.xs)  # (rows, n_per_proc), locally sorted
-        bounds = np.stack([np.searchsorted(row, keys) for row in xs])
-        rows = xs.shape[0]
+        rows, n_p = prep.xs.shape  # locally sorted runs
+        keys = prep.splits[0][:1].expand(rows, -1)  # the replicated (p-1,) splitter keys, a row each
+        inner = prim.searchsorted(prim.sort_key(prep.xs), prim.sort_key(keys)).cpu().numpy().astype(np.int64)
         bounds = np.concatenate(
-            [np.zeros((rows, 1), np.int64), bounds, np.full((rows, 1), xs.shape[1], np.int64)], axis=1)
+            [np.zeros((rows, 1), np.int64), inner, np.full((rows, 1), n_p, np.int64)], axis=1)
         sendc = np.diff(_gathered_bounds(procs, bounds, prep.xs.device), axis=1)
         recv = sendc.sum(axis=0)
         args = dict(
@@ -696,6 +720,7 @@ def _safe_launch(
             planner.observe(_bucket, st.retries > retries_before, n_rungs)
 
     enter = scope if scope is not None else contextlib.nullcontext
+    dev = x.device
     if not resume:
 
         def run_tier(tier_cfg: SortConfig, rung: int):
@@ -703,20 +728,22 @@ def _safe_launch(
             return _result(*sort_stage(tier_cfg, *keys)(x, positions, *values), key_dtype)
 
     else:
+        tid = meta["tid"] if tracer is not None else None
+        if tracer is not None:
+            t0, ev0 = tracer.now(), tracer.mark(dev)
+        with enter(), trace_lane(tracer, tid, "prepare", device=dev):
+            prep = prepare_stage(cfg, *keys)(x, *values)
         if tracer is not None:
             # a traced run waits for the device at the stage boundary, so the
             # prepare span includes the device's time and the route spans
             # start clean; an untraced run stays asynchronous
-            with tracer.span("prepare", tid=meta["tid"], algorithm=cfg.algorithm, route=cfg.route,
-                             p=cfg.p, n_per_proc=cfg.n_per_proc):
-                with enter():
-                    prep = prepare_stage(cfg, *keys)(x, *values)
-                if x.device.type == "cuda":
-                    torch.cuda.synchronize(x.device)
+            ev1 = tracer.mark(dev)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            tracer.add_span("prepare", t0, tid=tid, stream=(ev0, ev1), algorithm=cfg.algorithm, route=cfg.route,
+                            p=cfg.p, n_per_proc=cfg.n_per_proc)
+            tracer.resolve()
             _trace_prepared(tracer, meta, cfg, prep, procs)
-        else:
-            with enter():
-                prep = prepare_stage(cfg, *keys)(x, *values)
         if cfg.route == "radix":
             # the counts are in hand: one rung sized to the true maxima
             if tracer is not None:

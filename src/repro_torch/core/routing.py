@@ -26,6 +26,10 @@ Every exchange goes through the processor group (``procs=``,
 processors, or one ``torch.distributed`` call per superstep on a mesh
 axis. The overflow flag is the group's ``any``, so every processor reads
 the same decision.
+
+:func:`route_and_merge` runs Ph5 in the ``obs.trace`` stage ``exchange``
+and Ph6 in ``merge_tree`` (the tree tail) or ``merge_sort`` (the sort
+tail).
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..obs.trace import stage
 from . import merge as merge_mod
 from . import primitives as prim
 from .types import SortConfig, sentinel_for
@@ -291,7 +296,10 @@ def route_and_merge(
     compacted buffer, not rows, so it takes the sort tail under either.
     """
     if cfg.merge == "tree" and cfg.routing != "ring":
-        rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values, procs)
+        with stage("exchange", keys=x_sorted.numel()) as st:
+            rows, rcounts, overflow = recv_rows(x_sorted, boundaries, cfg, values, procs)
+            if st:
+                st.args["slots"] = exchange_slots(cfg, x_sorted.shape[0])
         cap = cfg.n_max
         has_nan = None
         if cfg.merge_backend == "pallas" and not values and x_sorted.is_floating_point():
@@ -300,16 +308,30 @@ def route_and_merge(
             # of the processors this group holds is enough: it picks between
             # two sub-routes whose bytes are equal
             has_nan = torch.isnan(x_sorted).any()
-        merged, mvals, count = merge_mod.merge_tree(
-            rows[0], rcounts, values=rows[1:], backend=cfg.merge_backend, cap=cap, has_nan=has_nan
-        )
+        with stage("merge_tree", slots=rows[0].numel()):
+            merged, mvals, count = merge_mod.merge_tree(
+                rows[0], rcounts, values=rows[1:], backend=cfg.merge_backend, cap=cap, has_nan=has_nan
+            )
         merged = _fit(merged, cap, sentinel_for(x_sorted.dtype))
         mvals = [_fit(v, cap, _PAYLOAD_PAD) for v in mvals]
         return merged, mvals, torch.clamp(count, max=cap), overflow
 
-    buf, vbufs, count, overflow = route(x_sorted, boundaries, cfg, values, procs)
-    merged, mvals = merge_mod.merge_by_sort(buf, vbufs)
+    with stage("exchange", keys=x_sorted.numel()) as st:
+        buf, vbufs, count, overflow = route(x_sorted, boundaries, cfg, values, procs)
+        if st:
+            st.args["slots"] = exchange_slots(cfg, x_sorted.shape[0])
+    with stage("merge_sort", slots=buf.numel()):
+        merged, mvals = merge_mod.merge_by_sort(buf, vbufs)
     return merged, mvals, count, overflow
+
+
+def exchange_slots(cfg: SortConfig, nrows: int) -> int:
+    """Receive slots a rung's exchange fills on ``nrows`` processors:
+    rows × p × the pair width (``pair_cap``; n_p for ``allgather``), or
+    rows × (n_max + 1) for the ring's compacted buffers."""
+    if cfg.routing == "ring":
+        return nrows * (cfg.n_max + 1)
+    return nrows * cfg.p * (cfg.pair_cap if cfg.routing == "a2a_dense" else cfg.n_per_proc)
 
 
 def _route_ring(

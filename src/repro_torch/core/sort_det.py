@@ -9,7 +9,8 @@ Phases over the (p, n_per_proc) layout:
 
 Ph2/Ph3 do not depend on the capacity tier, so the overflow-safe driver
 runs :func:`prepare_det_spmd` once and re-enters :func:`route_det_spmd`
-per ladder rung.
+per ladder rung. Each phase runs in an ``obs.trace.stage`` (``local_sort``,
+``splitters``, ``partition``; Ph5/Ph6 in ``routing.route_and_merge``).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..obs.trace import stage
 from . import routing, splitters
 from .local_sort import local_sort
 from .types import PreparedSort, SortConfig
@@ -26,8 +28,10 @@ def prepare_det_spmd(
     x: torch.Tensor, cfg: SortConfig, values: Sequence[torch.Tensor] = (), procs=None
 ) -> PreparedSort:
     """Tier-invariant stages: Ph2 local sort + Ph3 sample/splitters."""
-    xs, vals = local_sort(x, cfg.local_sort, values)
-    splits = splitters.splitter_stage(xs, cfg, procs=procs)
+    with stage("local_sort", keys=x.numel()):
+        xs, vals = local_sort(x, cfg.local_sort, values)
+    with stage("splitters", keys=xs.numel()):
+        splits = splitters.splitter_stage(xs, cfg, procs=procs)
     return PreparedSort(xs=xs, vals=tuple(vals), splits=splits)
 
 
@@ -35,7 +39,8 @@ def route_det_spmd(
     prep: PreparedSort, cfg: SortConfig, procs=None
 ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor, torch.Tensor]:
     """Tier-dependent stages: Ph4 partition, Ph5 routing, Ph6 merge."""
-    bounds = splitters.searchsorted_tagged(prep.xs, prep.splits, procs)
+    with stage("partition", keys=prep.xs.numel()):
+        bounds = splitters.searchsorted_tagged(prep.xs, prep.splits, procs)
     return routing.route_and_merge(prep.xs, bounds, cfg, list(prep.vals), procs)
 
 

@@ -7,7 +7,8 @@ bfloat16. Around them the JAX package's wrapper logic:
 
 * :func:`sort` — sentinel padding to a power of two ≥ 128, single tiles up
   to ``MAX_WIDTH``, and for wider rows ``MAX_WIDTH`` tiles sorted by the
-  kernel and combined by rank merges;
+  kernel and combined by rank merges (the stages ``local_sort.tiles`` and
+  ``local_sort.rank_merge`` of ``obs.trace``);
 * :func:`sort_kv` — keys padded with the sentinel and values with 0, one
   tile up to ``MAX_WIDTH``; wider rows take a stable argsort and a gather,
   as the JAX wrapper does. The network is not stable: equal keys may come
@@ -20,6 +21,7 @@ import torch
 
 from ...core.primitives import bias_unsigned, gather, scatter_, searchsorted, stable_sort, unbias_unsigned
 from ...core.types import sentinel_for
+from ...obs.trace import stage
 from .. import _build
 from . import ref
 
@@ -110,12 +112,14 @@ def sort(x: torch.Tensor) -> torch.Tensor:
     # multi-tile: sort MAX_WIDTH tiles in the kernel, then merge pairs.
     w = _pow2_at_least(n, MAX_WIDTH)
     t = w // MAX_WIDTH
-    tiles = sort_tiles(_pad(x, w, sent).reshape(rows * t, MAX_WIDTH)).reshape(rows, t, MAX_WIDTH)
+    with stage("local_sort.tiles", keys=rows * w):
+        tiles = sort_tiles(_pad(x, w, sent).reshape(rows * t, MAX_WIDTH)).reshape(rows, t, MAX_WIDTH)
     unsigned = tiles.dtype == torch.uint32
-    if unsigned:  # no uint32 searchsorted/scatter: merge the order-keeping bias
-        tiles = bias_unsigned(tiles)
-    while tiles.shape[1] > 1:
-        tiles = _rank_merge(tiles[:, 0::2], tiles[:, 1::2])
+    with stage("local_sort.rank_merge", keys=rows * w):
+        if unsigned:  # no uint32 searchsorted/scatter: merge the order-keeping bias
+            tiles = bias_unsigned(tiles)
+        while tiles.shape[1] > 1:
+            tiles = _rank_merge(tiles[:, 0::2], tiles[:, 1::2])
     out = tiles[:, 0, :n]
     if unsigned:
         out = unbias_unsigned(out)

@@ -1,15 +1,18 @@
 """repro_torch.obs — the BSP cost-model observatory of the port.
 
 Host code, a copy of the JAX package's ``repro.obs`` (the port imports
-nothing of that package): nothing here touches a tensor, so tracing cannot
+nothing of that package): nothing here reads or writes a tensor (the
+tracer only records CUDA timing events on the stream), so tracing cannot
 change what the device computes. Three pieces:
 
 * :class:`MetricsRegistry` (``registry.py``) — process-wide labeled
   counters/gauges/histograms with one ``snapshot()``/``reset()``;
   ``TierStats``, the capacity planner and the delta views count into it.
 * :class:`Tracer` (``trace.py``) — superstep spans recorded at the sort
-  drivers' launch/wait boundaries, exported as Chrome ``trace_event``
-  JSON. Off by default; enable per run with ``SortConfig(obs=tracer)``.
+  drivers' launch/wait boundaries, and ``stage`` spans from inside the
+  sort's phases through the ``trace.stage`` hook, exported as Chrome
+  ``trace_event`` JSON, on the tracer's clock or a profiler trace's. Off
+  by default; enable per run with ``SortConfig(obs=tracer)``.
 * the fitted machine profile (``profile.py``) — least-squares (g, L) over
   the traced h sizes and measured superstep walls, plus the per-run cost
   report (``w + g·h + L`` predicted vs measured) and the load-imbalance

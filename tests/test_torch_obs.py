@@ -10,6 +10,14 @@ for the sort and the segmented sort. The route spans' arguments (tier,
 rung, ok, h_words, supersteps, recv_max, recv) and the distribution points
 equal the reference's on det runs. Tolerance: exact, except the fit and
 the cost report (rel 1e-12); timing fields are not compared.
+
+The stage spans, which the reference cannot record (its stages run under
+jit): one set a rung in launch order, on the sort's lane, inside their
+driver span; K1's tiles and the rank merges inside ``local_sort``; no
+clock, event or range on the untraced path; a ``bsp:`` range for every
+span under the profiler, and the spans aligned onto its clock; the
+distribution point searched on the device, copying only the boundaries;
+and on the card, stream times within their host intervals.
 """
 from __future__ import annotations
 
@@ -245,7 +253,8 @@ def test_route_spans_and_distribution_match_reference(dist, kw):
     want = [{k: s["args"][k] for k in ROUTE_ARGS} for s in rt.route_spans()]
     got = [{k: s["args"][k] for k in ROUTE_ARGS} for s in t.route_spans()]
     assert got == want and len(got) >= 1
-    assert [s["name"] for s in t.spans] == [s["name"] for s in rt.spans]
+    # the reference's categories: its stages run under jit, where no span can sit
+    assert [s["name"] for s in t.spans if s["cat"] != "stage"] == [s["name"] for s in rt.spans]
     pts = lambda tr: [(p_["name"], p_["args"]) for p_ in tr.points]  # noqa: E731
     assert pts(t) == pts(rt)
 
@@ -379,3 +388,196 @@ def port_result(buf, count, overflow):
     from repro_torch.core import SortResult
 
     return SortResult(buf=buf, count=count, overflow=overflow.any())
+
+
+# ------------------------------------------------------- stage spans
+STAGE_KW = dict(p=P, n_per_proc=N_P, pair_capacity="whp", merge="tree")
+
+
+def span_end(s):
+    return s["t0"] + s["dur"]
+
+
+def test_stage_spans_one_set_per_rung_in_launch_order():
+    ex = SortExecutor()
+    x = datagen.generate("DD", P, N_P, seed=3)
+    r0, _, _ = bsp_sort_safe(x, SortConfig(**STAGE_KW), executor=ex, device="cpu")
+    counts = dict(ex.trace_counts)
+    t = obs.Tracer()
+    r1, _, st = bsp_sort_safe(x, SortConfig(obs=t, **STAGE_KW), executor=ex, device="cpu")
+    assert dict(ex.trace_counts) == counts  # the stage hook builds no entry
+    assert torch.equal(r0.buf, r1.buf) and torch.equal(r0.count, r1.count)
+    assert obs.validate_spans(t) == []
+    routes = t.route_spans()
+    assert len(routes) == sum(st.attempts.values()) >= 3  # the DD ladder climbs
+    want = [("local_sort", "prepare", None, None), ("splitters", "prepare", None, None)]
+    for r in routes:
+        want += [(n, "route", r["args"]["rung"], r["args"]["tier"]) for n in ("partition", "exchange", "merge_tree")]
+    stages = sorted((s for s in t.spans if s["cat"] == "stage"), key=lambda s: s["t0"])
+    assert [(s["name"], s["args"]["parent"], s["args"]["rung"], s["args"]["tier"]) for s in stages] == want
+    (prep,) = [s for s in t.spans if s["name"] == "prepare"]
+    for s in stages:
+        assert s["tid"] == prep["tid"] == routes[0]["tid"]
+        assert s["args"]["host_ms"] == s["dur"] * 1e3 and s["args"]["stream_ms"] is None  # no stream off the card
+        outer = prep if s["args"]["parent"] == "prepare" else routes[s["args"]["rung"]]
+        assert outer["t0"] <= s["t0"] and span_end(s) <= span_end(outer)
+    for s in [prep] + routes:
+        assert "stream_ms" in s["args"] and s["args"]["stream_ms"] is None
+    # Ph5's receive slots: rows x p x the rung's pair capacity
+    ladder = SortConfig(**STAGE_KW).tier_ladder()
+    assert [s["args"]["slots"] for s in stages if s["name"] == "exchange"] == [
+        P * P * c.pair_cap for _, c in ladder[:len(routes)]]
+    assert all(s["args"]["keys"] == P * N_P for s in stages if s["name"] != "merge_tree")
+
+
+def test_tiles_and_rank_merge_lie_inside_local_sort():
+    from repro_torch.kernels.bitonic.ops import MAX_WIDTH
+
+    p, n_p = 2, 2 * MAX_WIDTH  # two K1 tiles a row, then one rank-merge round
+    x = datagen.generate("U", p, n_p, seed=4)
+    kw = dict(p=p, n_per_proc=n_p, local_sort="bitonic", merge="tree", pair_capacity="whp")
+    r0, _, _ = bsp_sort_safe(x, SortConfig(**kw), device="cpu")
+    t = obs.Tracer()
+    r1, _, _ = bsp_sort_safe(x, SortConfig(obs=t, **kw), device="cpu")
+    assert torch.equal(r0.buf, r1.buf) and torch.equal(r0.count, r1.count)
+    (ls,) = [s for s in t.spans if s["name"] == "local_sort"]
+    kids = sorted((s for s in t.spans if s["name"].startswith("local_sort.")), key=lambda s: s["t0"])
+    assert [s["name"] for s in kids] == ["local_sort.tiles", "local_sort.rank_merge"]
+    for s in kids:
+        assert ls["t0"] <= s["t0"] and span_end(s) <= span_end(ls)
+        assert s["args"]["parent"] == "prepare" and s["tid"] == ls["tid"] and s["args"]["keys"] == p * n_p
+    assert span_end(kids[0]) <= kids[1]["t0"]
+
+
+def test_untraced_stages_read_no_clock_record_no_event_open_no_range(monkeypatch):
+    import time
+
+    from repro_torch.obs import trace
+
+    seen = {"clock": 0, "event": 0, "range": 0}
+    real_clock = time.perf_counter
+
+    def clock():
+        seen["clock"] += 1
+        return real_clock()
+
+    class Fake:
+        def __init__(self, what):
+            seen[what] += 1
+
+    monkeypatch.setattr(time, "perf_counter", clock)
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **k: Fake("event"))
+    monkeypatch.setattr(torch.profiler, "record_function", lambda *a, **k: Fake("range"))
+    x = datagen.generate("DD", P, N_P, seed=3)
+    bsp_sort_safe(x, SortConfig(**STAGE_KW), device="cpu")
+    assert seen == {"clock": 0, "event": 0, "range": 0}
+    assert trace.stage("partition", keys=1) is trace.lane(None, None, "prepare") is trace._NULL
+    assert not trace.stage("exchange")
+    t = obs.Tracer(clock=clock)
+    bsp_sort_safe(x, SortConfig(obs=t, **STAGE_KW), device="cpu")
+    assert seen["clock"] > 0 and seen["event"] == seen["range"] == 0  # traced on the CPU: clocks only
+
+
+def test_profiled_spans_have_ranges_and_align_to_the_trace(tmp_path):
+    from collections import defaultdict
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.trace import range_name
+
+    t = obs.Tracer()
+    x = datagen.generate("DD", P, N_P, seed=3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        bsp_sort_safe(x, SortConfig(obs=t, **STAGE_KW), device="cpu")
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    ranges = defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e["name"].startswith("bsp:"):
+            ranges[e["name"]].append(float(e["ts"]))
+    names = [range_name(s) for s in t.spans]
+    assert None not in names and set(names) == set(ranges)  # every span has its range, and no range is spare
+    assert "bsp:rung.whp" in ranges and "bsp:local_sort" in ranges
+    aligned = t.chrome_trace(align_to=events)
+    assert obs.validate_chrome_trace(aligned) == []
+    starts = defaultdict(list)
+    for name, e in zip(names, [e for e in aligned["traceEvents"] if e["ph"] == "X"]):
+        starts[name].append(e["ts"])
+    for name, ts in starts.items():
+        got = sorted(ranges[name])
+        assert len(got) == len(ts), name
+        for a, b in zip(sorted(ts), got):
+            assert abs(a - b) < 1000.0, (name, a - b)  # µs
+    with pytest.raises(ValueError):
+        t.chrome_trace(align_to=[])
+
+
+@pytest.mark.parametrize("kind", ["int32 DD", "float32 with NaNs and zeros"])
+def test_traced_prepare_copies_only_the_boundaries(kind, monkeypatch):
+    """The distribution point searches the runs on the device; the host
+    gets the (rows, p+1) boundaries and nothing larger, and the point is
+    the one a host search of the copied runs gives."""
+    from repro_torch.core import api
+
+    rng = np.random.default_rng(6)
+    if kind == "int32 DD":
+        x = torch.from_numpy(datagen.generate("DD", P, N_P, seed=6))
+    else:
+        v = rng.choice(np.array([np.nan, -0.0, 0.0, -1.5, 2.0, np.inf], np.float32), (P, N_P))
+        x = torch.from_numpy(np.where(rng.random((P, N_P)) < 0.5, rng.normal(size=(P, N_P)), v).astype(np.float32))
+    cfg = SortConfig(p=P, n_per_proc=N_P, pair_capacity="whp")
+    prep = SortExecutor().prepare_vmap(cfg, 0)(x)
+    t = obs.Tracer()
+    meta = api._trace_meta_for(t, x, [])
+    copies = []
+    for name in ("cpu", "numpy", "tolist", "item"):
+        real = getattr(torch.Tensor, name)
+
+        def spy(self, *a, _real=real, **k):
+            copies.append(self.numel())
+            return _real(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, spy)
+    api._trace_prepared(t, meta, cfg, prep)
+    monkeypatch.undo()
+    assert copies and max(copies) <= P * (P + 1)
+    (pt,) = [p_["args"] for p_ in t.points if p_["name"] == "distribution"]
+    # the host search the point was made by before: np.searchsorted of the copied runs
+    xs, keys = prep.xs.numpy(), prep.splits[0][0].numpy()
+    bounds = np.stack([np.searchsorted(row, keys) for row in xs])
+    bounds = np.concatenate([np.zeros((P, 1), np.int64), bounds, np.full((P, 1), N_P, np.int64)], axis=1)
+    sendc = np.diff(bounds, axis=1)
+    recv = sendc.sum(axis=0)
+    assert pt["pair_max"] == int(sendc.max()) and pt["recv_max"] == int(recv.max())
+    assert pt["skew"] == float(recv.max() / recv.mean()) and pt["send_bytes"] == (sendc * 4).tolist()
+
+
+@pytest.mark.cuda
+def test_card_stream_times_fit_their_host_intervals():
+    """On the card every span's stream time is positive and no longer than
+    its host interval from launch to the sync that read it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    from repro_torch.kernels.bitonic.ops import MAX_WIDTH
+
+    n_p = 2 * MAX_WIDTH
+    x = torch.from_numpy(datagen.generate("DD", P, n_p, seed=3)).cuda()
+    t = obs.Tracer()
+    cfg = SortConfig(p=P, n_per_proc=n_p, pair_capacity="whp", local_sort="bitonic", merge="tree",
+                     merge_backend="pallas", obs=t)
+    res, _, st = bsp_sort_safe(x, cfg)
+    assert torch.equal(gathered_output(res).cpu(), torch.sort(x.flatten().cpu()).values)
+    (prep,) = [s for s in t.spans if s["name"] == "prepare"]
+    routes = t.route_spans()
+    assert st.retries >= 1 and {s["name"] for s in t.spans if s["cat"] == "stage"} >= {
+        "local_sort", "local_sort.tiles", "local_sort.rank_merge", "splitters", "partition", "exchange", "merge_tree"}
+    timed = [s for s in t.spans if "stream_ms" in s["args"]]
+    assert len(timed) == len(t.spans)
+    for s in timed:
+        ms = s["args"]["stream_ms"]
+        if s["cat"] == "stage":
+            outer = prep if s["args"]["parent"] == "prepare" else routes[s["args"]["rung"]]
+        else:
+            outer = s
+        assert ms is not None and 0 < ms <= (span_end(outer) - s["t0"]) * 1e3 + 1e-3, (s["name"], ms)
