@@ -17,7 +17,10 @@ Phases, each printing one JSON line; any failure ends the run nonzero:
                      for 2-, 4- and 8-byte values under every key dtype with
                      heavy ties, at widths 128, 512, 1024 and 16384; K2
                      tagged ranks; K3 merge-path merge, also on float
-                     windows with ±0.0 and NaN; K2 and K3 on int64 rows
+                     windows with ±0.0 and NaN and on Ph2's rounds over
+                     K1's tiles (pairs read in place at row stride 2W, W
+                     16384 and 2^19, the last clipped short of 2^20); K2
+                     and K3 on int64 rows
                      (extremes, sentinel tails, broadcast and unsorted
                      query rows, clipped widths), and K2 int64 on the delta
                      fold's one long row (2^23 against 2^16); K3's float
@@ -1058,8 +1061,12 @@ def kernels_k2(torch, sops, sref, gen, details):
 
 def kernels_k3(torch, mops, mref, gen, details):
     """K3 on the key-only merge rounds (whp rounds 1-2, the exact round
-    clipped to n_max), widths that are no multiple of a span, one side all
-    sentinel, all-equal keys, W = 1, and float windows with ±0.0 and NaN."""
+    clipped to n_max), on Ph2's rounds over K1's tiles (pairs read in place
+    as the even and odd rows of one contiguous buffer, row stride 2W: the
+    first round of 128 rows x 64 tiles of 16384, the last round to 2^20
+    keys a row and the same clipped to n short of a power of two), widths
+    that are no multiple of a span, one side all sentinel, all-equal keys,
+    W = 1, and float windows with ±0.0 and NaN."""
     int_max = torch.iinfo(torch.int32).max
     errs = []
 
@@ -1088,6 +1095,22 @@ def kernels_k3(torch, mops, mref, gen, details):
                  library_ms=lib["ms"], library_device_ms=lib["device_ms"])
         details.append(d)
         summary = summary or d
+    # Ph2's rounds (kernels/bitonic/ops.py): a pair is rows 2k and 2k + 1 of
+    # the buffer K1 or the round before wrote, read where they lie
+    for what, rows, w, out_w, plain_rows in (("Ph2 round 1", 8192, 16384, 32768, 4),
+                                             ("Ph2 last round", 256, 2**19, 2**20, 2),
+                                             ("Ph2 last round clipped", 256, 2**19, 2**20 - 4095, 2)):
+        buf = sorted_rows(torch, rows, w, torch.int32, gen, True)
+        a, b = buf[0::2], buf[1::2]
+        tile, ap, bp = check(a, b, out_w, plain_rows, what)
+        b_ms, b_by = bound(rows // 2 * (min(2 * w, out_w) + out_w) * 4, rows // 2 * out_w)
+        details.append(dict(kernel="K3", round=what, shape=[rows // 2, w], row_stride=a.stride(0),
+                            out_width=out_w,
+                            **timed(torch, lambda: mops.merge_partitioned(a, b, width=out_w)),
+                            bound_ms=b_ms, bound_by=b_by, plain_rows=plain_rows,
+                            plain_ms=time_ms(torch, lambda: mref.merge_windows(ap, bp, tile, out_w),
+                                             target_ms=1)))
+        del buf, a, b
     # edges: clipped widths no multiple of any span, one side all sentinel,
     # all-equal keys, one-key rows
     for what, rows, w, out_w in (("clipped 2000", 512, 1256, 2000), ("clipped 5001", 256, 3000, 5001),

@@ -61,6 +61,10 @@
 //   (the upper half is not output), so 6144 compare-exchanges a window
 //   instead of 11264. A NaN-free row of a sort whose other rows hold NaNs
 //   can be unsorted too, so the route is chosen for a whole call.
+// * Row strides: the rows of a and of b may each lie at their own stride.
+//   Ph2's merge rounds over K1's tiles (kernels/bitonic/ops.py) read a pair
+//   as rows 2k and 2k + 1 of the buffer the round before wrote (stride 2 *
+//   width), so no round copies its pairs apart; Ph6 passes contiguous rows.
 // * Choosing the route without a host sync: a float call takes a device
 //   byte, nonzero if any of its rows may hold a NaN (the merge tree hands
 //   every round one flag, reduced from the keys as they enter it). All four
@@ -132,15 +136,16 @@ template <class K>
 __global__ void merge_path_diag_kernel(const typename K::T* __restrict__ a,
                                        const typename K::T* __restrict__ b,
                                        int32_t* __restrict__ diag, int64_t rows,
-                                       int64_t width, int tile, int64_t spans,
+                                       int64_t width, int64_t a_stride, int64_t b_stride,
+                                       int tile, int64_t spans,
                                        const unsigned char* __restrict__ nan) {
   if (*nan == 0) return;  // the merge route runs
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= rows * spans) return;
   const int64_t row = idx / spans;
   const int64_t d = (idx % spans) * tile;
-  const typename K::T* ar = a + row * width;
-  const typename K::T* br = b + row * width;
+  const typename K::T* ar = a + row * a_stride;
+  const typename K::T* br = b + row * b_stride;
   // ia = searchsorted(pos_a, d), pos_a(i) = i + searchsorted(b, a_i)
   int64_t low = 0, high = width;
   for (int l = search_levels(width); l > 0; --l) {
@@ -199,7 +204,8 @@ template <class K>
 __global__ void __launch_bounds__(kThreads)
     merge_network_kernel(const typename K::T* __restrict__ a, const typename K::T* __restrict__ b,
                          typename K::T* __restrict__ out, const int32_t* __restrict__ diag,
-                         int64_t rows, int64_t width, int64_t out_width, int tile, int64_t spans,
+                         int64_t rows, int64_t width, int64_t a_stride, int64_t b_stride,
+                         int64_t out_width, int tile, int64_t spans,
                          const unsigned char* __restrict__ nan) {
   using T = typename K::T;
   if (*nan == 0) return;
@@ -209,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t row = block / spans;
     const int64_t d = (block % spans) * tile;
     const int64_t ia = diag[block];
-    network_window<K>(s, a + row * width, b + row * width, width, ia, d - ia, tile);
+    network_window<K>(s, a + row * a_stride, b + row * b_stride, width, ia, d - ia, tile);
     T* orow = out + row * out_width + d;
     const int64_t limit = out_width - d;  // columns of this span to produce
     for (int t = threadIdx.x; t < tile && t < limit; t += blockDim.x) orow[t] = s[t];
@@ -226,15 +232,16 @@ template <class K>
 __global__ void merge_path_split_kernel(const typename K::T* __restrict__ a,
                                         const typename K::T* __restrict__ b,
                                         int32_t* __restrict__ split, int64_t rows,
-                                        int64_t width, int64_t out_width, int span,
-                                        int64_t spans, const unsigned char* __restrict__ nan) {
+                                        int64_t width, int64_t a_stride, int64_t b_stride,
+                                        int64_t out_width, int span, int64_t spans,
+                                        const unsigned char* __restrict__ nan) {
   if (nan != nullptr && *nan != 0) return;  // the network route runs
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= rows * (spans + 1)) return;
   const int64_t row = idx / (spans + 1);
   const int64_t d = min64((idx % (spans + 1)) * span, out_width);
-  const typename K::T* ar = a + row * width;
-  const typename K::T* br = b + row * width;
+  const typename K::T* ar = a + row * a_stride;
+  const typename K::T* br = b + row * b_stride;
   int64_t lo = max64(0, d - width), hi = min64(d, width);
   while (lo < hi) {
     const int64_t mid = (lo + hi) >> 1;
@@ -303,8 +310,8 @@ template <class K>
 __global__ void __launch_bounds__(kThreads)
     merge_path_kernel(const typename K::T* __restrict__ a, const typename K::T* __restrict__ b,
                       typename K::T* __restrict__ out, const int32_t* __restrict__ split,
-                      int64_t width, int64_t out_width, int span, int64_t spans, int tile,
-                      const unsigned char* __restrict__ nan) {
+                      int64_t width, int64_t a_stride, int64_t b_stride, int64_t out_width,
+                      int span, int64_t spans, int tile, const unsigned char* __restrict__ nan) {
   using T = typename K::T;
   constexpr bool floats = kFloatKeys<K>;
   if (nan != nullptr && *nan != 0) return;
@@ -319,8 +326,8 @@ __global__ void __launch_bounds__(kThreads)
   const int na = sp[1] - sp[0];
   const int nb = static_cast<int>(d1 - sp[1] - b0);
   const int len = static_cast<int>(d1 - d0);
-  const T* ar = a + row * width;
-  const T* br = b + row * width;
+  const T* ar = a + row * a_stride;
+  const T* br = b + row * b_stride;
   const T* sa = stage(smem, ar + a0, na);
   const T* sb = stage(align16(sa + na), br + b0, nb);
   T* orow = out + row * out_width + d0;
@@ -368,8 +375,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <class K>
 cudaError_t launch_merge(const void* a_, const void* b_, void* out_, int32_t* split, int64_t rows,
-                         int64_t width, int64_t out_width, int span, int tile,
-                         const unsigned char* nan, cudaStream_t stream) {
+                         int64_t width, int64_t a_stride, int64_t b_stride, int64_t out_width,
+                         int span, int tile, const unsigned char* nan, cudaStream_t stream) {
   using T = typename K::T;
   const T* a = static_cast<const T*>(a_);
   const T* b = static_cast<const T*>(b_);
@@ -377,7 +384,8 @@ cudaError_t launch_merge(const void* a_, const void* b_, void* out_, int32_t* sp
   const int64_t spans = (out_width + span - 1) / span;
   const int64_t bounds = rows * (spans + 1);
   merge_path_split_kernel<K><<<static_cast<unsigned>((bounds + kThreads - 1) / kThreads), kThreads,
-                               0, stream>>>(a, b, split, rows, width, out_width, span, spans, nan);
+                               0, stream>>>(a, b, split, rows, width, a_stride, b_stride,
+                                            out_width, span, spans, nan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem = merge_smem_bytes(span, tile, sizeof(T), kFloatKeys<K>);
@@ -387,19 +395,21 @@ cudaError_t launch_merge(const void* a_, const void* b_, void* out_, int32_t* sp
     if (err != cudaSuccess) return err;
   }
   merge_path_kernel<K><<<static_cast<unsigned>(rows * spans), kThreads, smem, stream>>>(
-      a, b, out, split, width, out_width, span, spans, tile, nan);
+      a, b, out, split, width, a_stride, b_stride, out_width, span, spans, tile, nan);
   return cudaGetLastError();
 }
 
 template <class K>
 cudaError_t launch_network(const void* a, const void* b, void* out, int32_t* diag,
-                           int64_t rows, int64_t width, int64_t out_width, int tile,
-                           const unsigned char* nan, cudaStream_t stream) {
+                           int64_t rows, int64_t width, int64_t a_stride, int64_t b_stride,
+                           int64_t out_width, int tile, const unsigned char* nan,
+                           cudaStream_t stream) {
   using T = typename K::T;
   const int64_t spans = (out_width + tile - 1) / tile;
   const int64_t diag_blocks = (rows * spans + kThreads - 1) / kThreads;
   merge_path_diag_kernel<K><<<static_cast<unsigned>(diag_blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), diag, rows, width, tile, spans, nan);
+      static_cast<const T*>(a), static_cast<const T*>(b), diag, rows, width, a_stride, b_stride,
+      tile, spans, nan);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int smem = 4 * tile * static_cast<int>(sizeof(T));  // two windows
@@ -412,41 +422,46 @@ cudaError_t launch_network(const void* a, const void* b, void* out, int32_t* dia
   const int64_t grid = min64(rows * spans, static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1));
   merge_network_kernel<K><<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(
       static_cast<const T*>(a), static_cast<const T*>(b), static_cast<T*>(out), diag, rows, width,
-      out_width, tile, spans, nan);
+      a_stride, b_stride, out_width, tile, spans, nan);
   return cudaGetLastError();
 }
 
 // Both routes; the kernels of the one the device byte does not pick return.
 template <class K>
 cudaError_t launch_float(const void* a, const void* b, void* out, int32_t* scratch, int64_t rows,
-                         int64_t width, int64_t out_width, int span, int tile,
-                         const unsigned char* nan, cudaStream_t stream) {
-  const cudaError_t err =
-      launch_merge<K>(a, b, out, scratch, rows, width, out_width, span, tile, nan, stream);
+                         int64_t width, int64_t a_stride, int64_t b_stride, int64_t out_width,
+                         int span, int tile, const unsigned char* nan, cudaStream_t stream) {
+  const cudaError_t err = launch_merge<K>(a, b, out, scratch, rows, width, a_stride, b_stride,
+                                          out_width, span, tile, nan, stream);
   if (err != cudaSuccess) return err;
-  return launch_network<K>(a, b, out, scratch, rows, width, out_width, tile, nan, stream);
+  return launch_network<K>(a, b, out, scratch, rows, width, a_stride, b_stride, out_width, tile,
+                           nan, stream);
 }
 
 }  // namespace
 
-// a, b (rows, width) sorted rows; out (rows, out_width), out_width <=
-// 2 * width. span: the merge route's outputs per CTA, a multiple of 256 up
-// to 256 * 15 (an odd multiple keeps the staging free of bank conflicts).
-// tile: float keys' reference span and network window, a power of two in
-// [128, 1024] (ignored for integer keys). scratch: int32, rows *
-// (ceil(out_width / span) + 1) entries (the merge route's splits at the
-// span boundaries), and for float keys at least rows * ceil(out_width /
-// tile) (the network route's diagonals). nan: float keys only (NULL for
-// integer keys), a device byte, nonzero if the rows may hold a NaN (then the
-// network route runs; on 0 the merge route, which needs every row
-// sorted). dtype: 0 int32, 1 float32, 3 bfloat16, 4 int64. Returns a
-// cudaError_t.
+// a, b (rows, width) sorted rows, row r of a at a + r * a_stride and of b
+// at b + r * b_stride (strides >= width, in keys: a round of a merge tree
+// reads its pairs as the even and odd rows of one buffer, stride 2 *
+// width, where the round before wrote them); out (rows, out_width)
+// contiguous, out_width <= 2 * width. span: the merge route's outputs per
+// CTA, a multiple of 256 up to 256 * 15 (an odd multiple keeps the staging
+// free of bank conflicts). tile: float keys' reference span and network
+// window, a power of two in [128, 1024] (ignored for integer keys).
+// scratch: int32, rows * (ceil(out_width / span) + 1) entries (the merge
+// route's splits at the span boundaries), and for float keys at least rows
+// * ceil(out_width / tile) (the network route's diagonals). nan: float keys
+// only (NULL for integer keys), a device byte, nonzero if the rows may hold
+// a NaN (then the network route runs; on 0 the merge route, which needs
+// every row sorted). dtype: 0 int32, 1 float32, 3 bfloat16, 4 int64.
+// Returns a cudaError_t.
 extern "C" int repro_merge_path(const void* a, const void* b, void* out, void* scratch,
-                                int64_t rows, int64_t width, int64_t out_width, int span,
-                                int tile, const void* nan, int dtype, void* stream) {
+                                int64_t rows, int64_t width, int64_t a_stride, int64_t b_stride,
+                                int64_t out_width, int span, int tile, const void* nan, int dtype,
+                                void* stream) {
   if (rows < 0 || width < 0 || width > 0x7fffffffLL || out_width < 0 || out_width > 2 * width ||
-      scratch == nullptr || span < kThreads || span % kThreads != 0 ||
-      span > kThreads * kMaxItems)
+      a_stride < width || b_stride < width || scratch == nullptr || span < kThreads ||
+      span % kThreads != 0 || span > kThreads * kMaxItems)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool floats = dtype == 1 || dtype == 3;
   if (floats && (nan == nullptr || tile < kMinTile || tile > kMaxTile || (tile & (tile - 1)) != 0))
@@ -458,11 +473,12 @@ extern "C" int repro_merge_path(const void* a, const void* b, void* out, void* s
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* sc = static_cast<int32_t*>(scratch);
   const unsigned char* flag = static_cast<const unsigned char*>(nan);
+  const int64_t as = a_stride, bs = b_stride;
   switch (dtype) {
-    case 0: return static_cast<int>(launch_merge<KeyI32>(a, b, out, sc, rows, width, out_width, span, tile, nullptr, s));
-    case 4: return static_cast<int>(launch_merge<KeyI64>(a, b, out, sc, rows, width, out_width, span, tile, nullptr, s));
-    case 1: return static_cast<int>(launch_float<KeyF32>(a, b, out, sc, rows, width, out_width, span, tile, flag, s));
-    case 3: return static_cast<int>(launch_float<KeyBF16>(a, b, out, sc, rows, width, out_width, span, tile, flag, s));
+    case 0: return static_cast<int>(launch_merge<KeyI32>(a, b, out, sc, rows, width, as, bs, out_width, span, tile, nullptr, s));
+    case 4: return static_cast<int>(launch_merge<KeyI64>(a, b, out, sc, rows, width, as, bs, out_width, span, tile, nullptr, s));
+    case 1: return static_cast<int>(launch_float<KeyF32>(a, b, out, sc, rows, width, as, bs, out_width, span, tile, flag, s));
+    case 3: return static_cast<int>(launch_float<KeyBF16>(a, b, out, sc, rows, width, as, bs, out_width, span, tile, flag, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

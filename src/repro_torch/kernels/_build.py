@@ -43,9 +43,10 @@ SIGNATURES = {
     # row stride (S, or 0 for one row broadcast), row procs|NULL, S, B, row
     # flags (B int32 scratch), out, dtype, stream
     "repro_splitter_ranks": [_P, _I64, _P, _P, _I, _P, _I64, _P, _I64, _I64, _P, _P, _I, _P],
-    # a, b, out, int32 scratch (splits | diagonals), rows, width, out_width,
-    # span, tile, NaN flag (device byte)|NULL, dtype, stream
-    "repro_merge_path": [_P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P, _I, _P],
+    # a, b, out, int32 scratch (splits | diagonals), rows, width, a's row
+    # stride, b's row stride (in keys), out_width, span, tile, NaN flag
+    # (device byte)|NULL, dtype, stream
+    "repro_merge_path": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -179,6 +180,20 @@ def check_cuda(t, name: str) -> None:
         raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_rows(t, name: str) -> int:
+    """A (rows, W) tensor a row-strided kernel may take: on a CUDA device,
+    each row's keys adjacent, rows apart by at least W. Returns the row
+    stride in elements."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got device {t.device}")
+    rows, width = t.shape
+    stride = t.stride(0) if rows > 1 else width
+    if (width > 1 and t.stride(1) != 1) or stride < width:
+        raise ValueError(f"{name} must hold each row's keys adjacent, rows at least a row apart; "
+                         f"got strides {t.stride()} for shape {tuple(t.shape)}")
+    return stride
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:

@@ -7,8 +7,14 @@ bfloat16. Around them the JAX package's wrapper logic:
 
 * :func:`sort` — sentinel padding to a power of two ≥ 128, single tiles up
   to ``MAX_WIDTH``, and for wider rows ``MAX_WIDTH`` tiles sorted by the
-  kernel and combined by rank merges (the stages ``local_sort.tiles`` and
-  ``local_sort.rank_merge`` of ``obs.trace``);
+  kernel and merged pairwise, round by round (the stages
+  ``local_sort.tiles`` and ``local_sort.rank_merge`` of ``obs.trace``;
+  the latter's ``route`` and ``rounds`` say how). Integer keys on the card
+  take K3's merge path (``kernels/merge_path``), each round reading its
+  pairs in place; float keys keep the JAX wrapper's rank merges, whose
+  bytes on ``-0.0``/``+0.0`` ties and NaN tiles K3's routes do not give,
+  and so does every CPU tensor. Equal integer keys are equal in every bit,
+  so both routes give the JAX package's bytes;
 * :func:`sort_kv` — keys padded with the sentinel and values with 0, one
   tile up to ``MAX_WIDTH``; wider rows take a stable argsort and a gather,
   as the JAX wrapper does. The network is not stable: equal keys may come
@@ -23,6 +29,7 @@ from ...core.primitives import bias_unsigned, gather, scatter_, searchsorted, st
 from ...core.types import sentinel_for
 from ...obs.trace import stage
 from .. import _build
+from ..merge_path import ops as merge_path_ops
 from . import ref
 
 #: widest single-tile sort: one CTA of 512 threads holding 32 keys each.
@@ -95,6 +102,10 @@ def sort_kv_tiles(keys: torch.Tensor, vals: torch.Tensor):
 
 
 def _pad(x: torch.Tensor, width: int, value) -> torch.Tensor:
+    """``x`` padded to ``width`` columns, contiguous; ``x`` itself when it
+    already is (the kernels and the plain networks never write their input)."""
+    if width == x.shape[1] and x.is_contiguous():
+        return x
     return torch.nn.functional.pad(x, (0, width - x.shape[1]), value=value).contiguous()
 
 
@@ -113,17 +124,47 @@ def sort(x: torch.Tensor) -> torch.Tensor:
     w = _pow2_at_least(n, MAX_WIDTH)
     t = w // MAX_WIDTH
     with stage("local_sort.tiles", keys=rows * w):
-        tiles = sort_tiles(_pad(x, w, sent).reshape(rows * t, MAX_WIDTH)).reshape(rows, t, MAX_WIDTH)
-    unsigned = tiles.dtype == torch.uint32
-    with stage("local_sort.rank_merge", keys=rows * w):
-        if unsigned:  # no uint32 searchsorted/scatter: merge the order-keeping bias
-            tiles = bias_unsigned(tiles)
-        while tiles.shape[1] > 1:
-            tiles = _rank_merge(tiles[:, 0::2], tiles[:, 1::2])
-    out = tiles[:, 0, :n]
-    if unsigned:
-        out = unbias_unsigned(out)
+        tiles = sort_tiles(_pad(x, w, sent).reshape(rows * t, MAX_WIDTH))
+    route = _merge_route(tiles)
+    rounds = t.bit_length() - 1
+    with stage("local_sort.rank_merge", keys=rows * w, route=route, rounds=rounds):
+        if route == "merge_path":
+            out = _merge_path_rounds(tiles, n, rounds)
+        else:
+            out = _rank_rounds(tiles, rows, n, rounds)
     return out[0] if squeeze else out
+
+
+def _merge_route(tiles: torch.Tensor) -> str:
+    """How :func:`sort` merges its tiles: ``"merge_path"`` (K3) for integer
+    keys on the card, else ``"rank"``."""
+    return "merge_path" if tiles.device.type == "cuda" and not tiles.is_floating_point() else "rank"
+
+
+def _merge_path_rounds(tiles: torch.Tensor, n: int, rounds: int) -> torch.Tensor:
+    """Merge (rows·2^rounds, W) sorted tiles into (rows, n) by K3, a round
+    at a time: a pair is rows 2k and 2k+1 of the round's buffer, read in
+    place (row stride 2W), and each round writes one (R/2, 2W) buffer, the
+    last only its first ``n`` columns."""
+    unsigned = tiles.dtype == torch.uint32
+    if unsigned:  # K3 merges the order-keeping bias as int32
+        tiles = bias_unsigned(tiles)
+    for r in range(rounds):
+        tiles = merge_path_ops.merge_partitioned(tiles[0::2], tiles[1::2], n if r == rounds - 1 else None)
+    return unbias_unsigned(tiles) if unsigned else tiles
+
+
+def _rank_rounds(tiles: torch.Tensor, rows: int, n: int, rounds: int) -> torch.Tensor:
+    """The JAX wrapper's merge of (rows·2^rounds, W) sorted tiles into
+    (rows, n): :func:`_rank_merge` rounds over (rows, tiles, W)."""
+    tiles = tiles.reshape(rows, 2**rounds, MAX_WIDTH)
+    unsigned = tiles.dtype == torch.uint32
+    if unsigned:  # no uint32 searchsorted/scatter: merge the order-keeping bias
+        tiles = bias_unsigned(tiles)
+    for _ in range(rounds):
+        tiles = _rank_merge(tiles[:, 0::2], tiles[:, 1::2])
+    out = tiles[:, 0, :n]
+    return unbias_unsigned(out) if unsigned else out
 
 
 def _rank_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -135,7 +176,9 @@ def _rank_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     i = torch.arange(m, device=a.device)
     pos_a = i + searchsorted(fb, fa, "left", exact).long()
     pos_b = i + searchsorted(fa, fb, "right", exact).long()
-    out = torch.empty((fa.shape[0], 2 * m), dtype=a.dtype, device=a.device)
+    # a NaN tile can give two keys one position and leave another unwritten,
+    # which holds the JAX wrapper's zero; integer positions are a permutation
+    out = (torch.zeros if exact else torch.empty)((fa.shape[0], 2 * m), dtype=a.dtype, device=a.device)
     scatter_(out, 1, pos_a, fa)
     scatter_(out, 1, pos_b, fb)
     return out.reshape(*lead, 2 * m)

@@ -2,7 +2,10 @@
 
 * :func:`merge_partitioned` — merge of sorted (rows, W) pairs cut into
   output spans, used by the Ph6 rank-merge tail for key-only pairs under
-  ``merge_backend="pallas"``. A CUDA tensor takes one of two routes:
+  ``merge_backend="pallas"`` and by Ph2's rounds over the K1 tiles of
+  integer keys (``kernels/bitonic/ops.py``), whose pairs are the even and
+  odd rows of one buffer, read in place. A CUDA tensor takes one of two
+  routes:
 
   - the merge route, for int32 and int64 keys (the latter counted under
     ``merge_sorted_tiles_int64``) and for float32/bfloat16 rows free of
@@ -73,6 +76,10 @@ def merge_partitioned(
     """Merge sorted (rows, W) pairs; returns the first ``width`` (default
     2W) columns of each merged row, value-identical to a stable merge.
 
+    ``a`` and ``b`` may be row-strided views (each row's keys adjacent,
+    rows at least W apart): a merge tree's round reads its pairs as the
+    even and odd rows of the buffer the round before wrote, in place.
+
     ``has_nan`` (float keys): a one-element bool tensor on the keys'
     device, True if any row of the call may hold a NaN; False sends every
     row down the merge route, which needs every row sorted (a NaN-free row
@@ -90,8 +97,8 @@ def merge_partitioned(
     tile = min(TILE, _pow2_at_least(W))
     if a.device.type == "cpu":
         return ref.merge_windows(a.contiguous(), b.contiguous(), tile, out_w)
-    _build.check_cuda(a, "a")
-    _build.check_cuda(b, "b")
+    a_stride = _build.check_rows(a, "a")
+    b_stride = _build.check_rows(b, "b")
     code = _build.dtype_code(a, _KERNEL_DTYPES)
     lib = _build.load()
     out = torch.empty((rows, out_w), dtype=a.dtype, device=a.device)
@@ -109,8 +116,8 @@ def merge_partitioned(
         flag = has_nan.contiguous()
     splits = torch.empty((max(scratch, 1),), dtype=torch.int32, device=a.device)
     rc = lib.repro_merge_path(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), splits.data_ptr(), rows, W, out_w, span, tile,
-        None if flag is None else flag.data_ptr(), code, _build.stream_handle(),
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), splits.data_ptr(), rows, W, a_stride, b_stride,
+        out_w, span, tile, None if flag is None else flag.data_ptr(), code, _build.stream_handle(),
     )
     _build.check_launch(lib, rc, "merge_sorted_tiles")
     if a.is_floating_point():

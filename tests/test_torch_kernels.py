@@ -521,3 +521,55 @@ def test_int64_kernels_match_plain_on_card():
     counts = _build.counts()
     assert counts["splitter_ranks_int64"] > 0 and counts["merge_sorted_tiles_int64"] > 0
     assert counts.get("splitter_ranks", 0) == 0 and counts.get("merge_sorted_tiles", 0) == 0
+
+
+@pytest.mark.cuda
+def test_bitonic_sort_merge_path_rounds_on_card():
+    """Ph2 on the card: integer rows wider than a tile merge their K1 tiles
+    by K3, one launch a round, reading each round's pairs in place; the
+    answer equals ``torch.sort``, the stage says ``route="merge_path"`` and
+    the rounds; float rows keep the rank merges, K3 untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    from repro_torch import obs
+    from repro_torch.core.primitives import bias_unsigned, unbias_unsigned
+    from repro_torch.obs import trace
+
+    g = torch.Generator(device="cuda").manual_seed(30)
+    imax = torch.iinfo(torch.int32).max
+
+    def traced_sort(x):
+        tr = obs.Tracer()
+        before = mops.LAUNCHES.n
+        with trace.lane(tr, "main", "prepare", device="cuda"):
+            got = bops.sort(x)
+        torch.cuda.synchronize()
+        (span,) = [s for s in tr.spans if s["name"] == "local_sort.rank_merge"]
+        return got, span["args"], mops.LAUNCHES.n - before
+
+    for rows, n, rounds in ((128, 64 * bops.MAX_WIDTH, 6), (2, 3 * bops.MAX_WIDTH + 5, 2)):
+        x = torch.randint(-(2**31), 2**31 - 1, (rows, n), device="cuda", generator=g, dtype=torch.int64).int()
+        x[0, :40] = imax  # real keys equal to the sentinel
+        x[-1, 100:3000] = 7  # ties across a tile
+        got, args, launches = traced_sort(x)
+        assert torch.equal(got, torch.sort(x, dim=-1).values), (rows, n)
+        assert (args["route"], args["rounds"], launches) == ("merge_path", rounds, rounds)
+        u = x[:2].view(torch.uint32)
+        got, args, launches = traced_sort(u)
+        want = unbias_unsigned(torch.sort(bias_unsigned(u), dim=-1).values)
+        assert got.dtype == torch.uint32 and torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (args["route"], args["rounds"], launches) == ("merge_path", rounds, rounds)
+    # a round's pairs as views of one buffer: the same bytes as contiguous copies
+    buf = torch.sort(torch.randint(0, 1000, (8, 3000), device="cuda", generator=g).int(), dim=-1).values
+    for width in (6000, 5001):
+        assert torch.equal(mops.merge_partitioned(buf[0::2], buf[1::2], width),
+                           mops.merge_partitioned(buf[0::2].contiguous(), buf[1::2].contiguous(), width))
+    with pytest.raises(ValueError):
+        mops.merge_partitioned(buf[:, 0::2], buf[:, 1::2])  # keys of a row not adjacent
+    choice = torch.tensor([-0.0, 0.0, 1.5, -2.0], device="cuda")
+    for dt in (torch.float32, torch.bfloat16):
+        f = choice[torch.randint(0, 4, (2, 3 * bops.MAX_WIDTH + 5), device="cuda", generator=g)].to(dt)
+        got, args, launches = traced_sort(f)
+        assert (args["route"], args["rounds"], launches) == ("rank", 2, 0)
+        bits = torch.int16 if dt == torch.bfloat16 else torch.int32
+        assert torch.equal(got.cpu().view(bits), bops.sort(f.cpu()).view(bits)), dt

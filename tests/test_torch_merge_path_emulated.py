@@ -10,9 +10,10 @@ replayed diagonals — and the integer route are held bit for bit against
 ``kernels/merge_path/ref.py::merge_windows`` (the JAX package's
 ``merge_partitioned``): ±0.0 bands that straddle a 1024 boundary, also
 across two merge CTAs; NaNs of both signs in order and out of order; +inf
-tails; clipped widths no multiple of a span; W = 1. The NaN flag is a byte
-the kernels read: 0 takes the merge route, 1 the network route. Tolerance:
-exact bytes.
+tails; clipped widths no multiple of a span; W = 1. The entry's row
+strides are held the same way on int32 pairs read in place as the even and
+odd rows of one buffer, as Ph2's merge rounds read them. The NaN flag is a byte the kernels read: 0 takes the merge route, 1
+the network route. Tolerance: exact bytes.
 """
 from __future__ import annotations
 
@@ -73,8 +74,9 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def _merge(lib, a: torch.Tensor, b: torch.Tensor, out_w: int, flag) -> torch.Tensor:
-    """The C entry point as ``merge_partitioned`` calls it, on CPU tensors;
-    the output starts as a pattern no kernel writes."""
+    """The C entry point as ``merge_partitioned`` calls it on contiguous
+    CPU tensors (both row strides the width); the output starts as a
+    pattern no kernel writes."""
     rows, w = a.shape
     tile = min(mops.TILE, mops._pow2_at_least(w))
     span = mops.int_span(out_w)
@@ -83,7 +85,7 @@ def _merge(lib, a: torch.Tensor, b: torch.Tensor, out_w: int, flag) -> torch.Ten
     out = _bits(torch.empty((rows, out_w), dtype=a.dtype)).fill_(0x5A5A).view(a.dtype)
     nan = None if flag is None else torch.tensor(bool(flag))
     rc = lib.repro_merge_path(a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, w,
-                              out_w, span, tile, None if nan is None else nan.data_ptr(),
+                              w, w, out_w, span, tile, None if nan is None else nan.data_ptr(),
                               _build.DTYPE_CODES[a.dtype], None)
     assert rc == 0
     return out
@@ -242,7 +244,7 @@ def test_emulated_entry_point_rejects_bad_spans(lib):
 
     def call(span, tile, dtype_code, flag=nan.data_ptr()):
         return lib.repro_merge_path(a.data_ptr(), a.data_ptr(), out.data_ptr(), scratch.data_ptr(), 2, 100,
-                                    200, span, tile, flag, dtype_code, None)
+                                    100, 100, 200, span, tile, flag, dtype_code, None)
 
     assert call(256, 128, 1) == 0
     assert call(256, 128, 1, None) != 0  # float keys need the NaN flag
@@ -251,3 +253,62 @@ def test_emulated_entry_point_rejects_bad_spans(lib):
     assert call(256, 100, 1) != 0  # float window no power of two
     assert call(256, 64, 3) != 0  # float window below 128
     assert call(256, 64, 0, None) == 0  # integer keys have no window and no flag
+
+
+def _merge_strided(lib, buf: torch.Tensor, out_w: int) -> torch.Tensor:
+    """The C entry on the pairs (buf[2k], buf[2k + 1]) of a contiguous
+    (2 * rows, W) buffer, read in place (row stride 2W), as Ph2's rounds
+    call it; the output starts as a pattern no kernel writes."""
+    a, b = buf[0::2], buf[1::2]
+    rows, w = a.shape
+    assert a.stride(0) == b.stride(0) == 2 * w and not a.is_contiguous()
+    span = mops.int_span(out_w)
+    scratch = torch.full((rows * (-(-out_w // span) + 1),), -7, dtype=torch.int32)
+    out = torch.full((rows, out_w), 0x5A5A5A5A, dtype=torch.int32)
+    rc = lib.repro_merge_path(a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, w,
+                              a.stride(0), b.stride(0), out_w, span, 128, None,
+                              _build.DTYPE_CODES[buf.dtype], None)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("w,rows,widths", [
+    (128, 6, (256, 200)),
+    (1000, 4, (2000, 1999)),
+    (4096, 2, (8192, 3841)),
+    (16384, 2, (32768, 30001)),
+    (2**17, 2, (2**18, 2**18 - 12345)),
+    (2**19, 2, (2**20 - 4095,)),
+])
+def test_emulated_strided_pairs_read_in_place(lib, w, rows, widths):
+    """int32 pairs as the even and odd rows of one buffer (sorted rows with
+    ties and sentinel tails), W up to Ph2's wider rounds: read at row stride
+    2W, the entry equals the window merge of contiguous copies, and on those
+    copies (stride W) it gives the same bytes."""
+    rng = np.random.default_rng(48 + w)
+    x = np.sort(rng.integers(-(2**31), 2**31 - 1, (2 * rows, w), dtype=np.int64), axis=-1).astype(np.int32)
+    x[:, 1:9] = x[:, :1]  # ties
+    x = np.sort(x, axis=-1)
+    for r, keep in enumerate(rng.integers(w // 2, w + 1, 2 * rows)):
+        x[r, keep:] = np.iinfo(np.int32).max
+    buf = torch.from_numpy(x)
+    a, b = buf[0::2].contiguous(), buf[1::2].contiguous()
+    tile = min(mops.TILE, mops._pow2_at_least(w))
+    for out_w in widths:
+        want = mref.merge_windows(a, b, tile, out_w)
+        got = _merge_strided(lib, buf, out_w)
+        assert torch.equal(got, want), (w, out_w)
+        assert torch.equal(_merge(lib, a, b, out_w, None), got), (w, out_w)
+
+
+def test_emulated_strided_entry_rejects_overlapping_rows(lib):
+    a = torch.zeros((2, 100), dtype=torch.int32)
+    out = torch.empty((2, 200), dtype=torch.int32)
+    scratch = torch.empty(16, dtype=torch.int32)
+
+    def call(a_stride, b_stride):
+        return lib.repro_merge_path(a.data_ptr(), a.data_ptr(), out.data_ptr(), scratch.data_ptr(), 2,
+                                    50, a_stride, b_stride, 100, 256, 128, None, 0, None)
+
+    assert call(100, 100) == 0 and call(50, 50) == 0
+    assert call(49, 100) != 0 and call(100, 49) != 0
